@@ -1,0 +1,43 @@
+"""Import guard: no module of `repro_torch`, and not `chip_smoke.py`,
+imports JAX or the JAX package `repro` (checked on the source, by AST)."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "bench_torch").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                "__import__", "import_module") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_port_has_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
+    for need in ("core/spice/char_batch.py", "kernels/batched_solve/fused.py",
+                 "interop.py"):
+        assert need in names
+    assert (PORT / "csrc" / "fused_newton.cu").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
+                         .as_posix())
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name in _imported(tree):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"

@@ -1,18 +1,30 @@
-"""Timing of the read path: the analytic formulas the transient
-characterization needs (stop times, stimulus, RBL column netlist).
+"""Timing: analytical (logical effort + Elmore) and transient-simulated
+read/write paths of one bank.
 
-Port of the part of `repro.core.timing` that
-`core.spice.char_batch.characterize` reaches. The analytic timing
-closure (`analyze`, `write_time`, delay-chain sizing) and the scalar
-transient reference `simulate_read` are not ported yet.
+Read critical path: clk->addr DFF -> decoder (logical-effort chain over
+row fanout) -> WL RC (Elmore) -> cell drives RBL swing (I_read into
+C_RBL) -> sense amp -> out DFF, plus the control delay-chain
+quantization: the chain must cover the analog path with margin, and its
+stage count jumps at array-size thresholds.
+
+The transient path (`simulate_read`) builds the RBL column netlist
+(driver, bitline RC ladder, active cell, SA load) and integrates it with
+the dense stepper of `core.spice.transient`, in float64 on `device`;
+`core.spice.char_batch.characterize` runs the same netlist and stimulus
+over a whole lattice.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from dataclasses import dataclass
 
-from repro_torch._deferred import deferred
+import torch
+
 from repro_torch.core import bank as bank_mod
 from repro_torch.core.cells import Sram6T
+from repro_torch.core.spice import devices as dv
+from repro_torch.core.techfile import with_vdd_scale
 
 FO4_S = 18e-12      # fanout-4 inverter delay in syn40
 LE_BRANCH = 2.0     # logical-effort branching per decode stage
@@ -37,6 +49,41 @@ def cell_swing_time(dv_sense, c_bl, i_net, r_bl):
     distributed-RC Elmore of the bitline ladder; calibrated against the
     transient engine to <= 15% (the GEMTOO-class gap, asserted in tests)."""
     return dv_sense * c_bl / (0.75 * i_net) + 0.35 * r_bl * c_bl + 9e-12
+
+
+def chain_unit(analog_s, unit_s):
+    """Delay-chain stage granularity: very slow paths (OS reads) switch to
+    a coarser unit, capping the chain at CHAIN_MAX_STAGES."""
+    while analog_s * CHAIN_MARGIN / unit_s > CHAIN_MAX_STAGES:
+        unit_s *= CHAIN_UNIT_GROWTH
+    return unit_s
+
+
+def bank_at_vdd(bank, vdd_scale: float):
+    """A shallow view of `bank` whose config carries the vdd-scaled deck.
+    Geometry, floorplan and wire RC are voltage-independent, so the copy
+    shares them; only the electrical algebra sees the scaled rail."""
+    if vdd_scale == 1.0:
+        return bank
+    cfg = dataclasses.replace(bank.cfg,
+                              tech=with_vdd_scale(bank.cfg.tech, vdd_scale))
+    return dataclasses.replace(bank, cfg=cfg)
+
+
+@dataclass
+class Timing:
+    """All delays in seconds, `f_max_hz` in hertz."""
+    t_read_s: float
+    t_write_s: float
+    t_wl_s: float
+    t_cell_s: float
+    t_dec_s: float
+    delay_stages: int
+    f_max_hz: float
+    read_swing_ok: bool
+
+    def as_dict(self):
+        return self.__dict__.copy()
 
 
 def decoder_delay(rows: int) -> float:
@@ -84,6 +131,67 @@ def cell_read_time(bank, *, v_sn=None, rc=None) -> tuple:
     ok = i > 3.0 * leak
     return cell_swing_time(dv_sense, c_bl, i_net, r_bl), ok
 
+
+def write_time(bank) -> float:
+    """WBL drive + WL + SN settle through the write device."""
+    tech = bank.cfg.tech
+    t_wl = wordline_delay(bank)
+    r_bl, c_bl = bank_mod.bitline_rc(bank)
+    t_bl = elmore_delay(WBL_DRIVER_R_OHM, r_bl, c_bl)
+    if isinstance(bank.cell, Sram6T):
+        return t_wl + t_bl + 2 * FO4_S
+    cell = bank.cell
+    wf = cell.wf(tech)
+    v_gate = tech.vdd + (bank.cfg.wwl_boost if bank.cfg.wwlls else 0.0)
+    i_on = abs(float(dv.channel_current(
+        wf, cell.w_write, cell.l_write, v_gate, tech.vdd, tech.vdd * 0.45)))
+    t_sn = cell.sn_cap(tech) * 0.9 * tech.vdd / max(i_on, 1e-12)
+    return t_wl + t_bl + t_sn
+
+
+def size_delay_chain(analog_s: float, tech) -> tuple:
+    """Control delay-chain sizing: the chain must cover the analog read
+    path with >= 30% margin, quantized to stages. Returns (stages,
+    unit_s); chain delay is stages * unit_s."""
+    unit = chain_unit(analog_s, tech.stage_delay_s)
+    return int(math.ceil(analog_s * CHAIN_MARGIN / unit)), unit
+
+
+def analyze(bank, *, vdd_scale: float = 1.0,
+            parasitics: str = "modeled") -> Timing:
+    """Analytic read/write timing closure of one bank, with the hand RC
+    models of `core.bank`. Sets `bank.delay_stages`.
+
+    parasitics="extracted" (layout-extracted read-column RC) waits for
+    the layout tier."""
+    if parasitics == "extracted":
+        raise NotImplementedError(
+            "timing.analyze(parasitics='extracted') is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 10 (layout tier))")
+    if parasitics != "modeled":
+        raise ValueError(f"parasitics must be 'modeled' or 'extracted', "
+                         f"got {parasitics!r}")
+    bank = bank_at_vdd(bank, vdd_scale)
+    tech = bank.cfg.tech
+    t_dec = decoder_delay(bank.rows)
+    t_wl = wordline_delay(bank)
+    t_cell, ok = cell_read_time(bank)
+    t_colmux = 2 * FO4_S if bank.has_colmux else 0.0
+    analog = t_wl + t_cell + t_colmux + tech.sa_delay_s
+    if bank.is_gc:
+        analog += REF_SETTLE_S  # single-ended sensing reference settle
+    stages, unit = size_delay_chain(analog, tech)
+    t_chain = stages * unit
+    t_read = tech.dff_delay_s + t_dec + t_chain + tech.dff_delay_s
+    t_wr = tech.dff_delay_s + t_dec + max(write_time(bank), t_chain * 0.6)
+    bank.delay_stages = stages
+    f = 1.0 / max(t_read, t_wr)
+    return Timing(t_read, t_wr, t_wl, t_cell, t_dec, stages, f, ok)
+
+
+# ---------------------------------------------------------------------------
+# transient-simulated read path
+# ---------------------------------------------------------------------------
 
 
 T_END_MIN_S = 0.5e-9        # stop-time floor for the read transient
@@ -157,8 +265,30 @@ def read_netlist(bank, n_seg: int = 8, rc=None):
     return ckt, meta
 
 
-_TIMING = "Queue 1 item 6 (analyses)"
-analyze = deferred("timing.analyze", _TIMING)
-write_time = deferred("timing.write_time", _TIMING)
-size_delay_chain = deferred("timing.size_delay_chain", _TIMING)
-simulate_read = deferred("timing.simulate_read", _TIMING)
+def simulate_read(bank, n_steps=300, t_end=None, solver="jnp",
+                  device="cuda"):
+    """Transient RBL swing; returns (t_cell_sim_seconds, traces).
+
+    Integrates in float64 on `device`: the MNA Jacobian's G_BIG Norton
+    rows put cond(J) around 1e6, so float32 Newton iterates carry ~1e-1
+    relative noise. With solver="pallas" each Newton solve runs in
+    float32 (the Gauss-Jordan kernel) against the float64 residual."""
+    from repro_torch.core.spice.transient import Transient, crossing_time
+    tech = bank.cfg.tech
+    cell = bank.cell
+    ckt, meta = read_netlist(bank)
+    sys = ckt.build(device=device)
+    tr = Transient(sys, solver=solver)
+    t_an, _ = cell_read_time(bank)
+    t_end = t_end or max(T_END_OVER_ANALYTIC * t_an, T_END_MIN_S)
+    t0 = T0_FRACTION * t_end
+    waves, v_pre = read_stimulus(cell, tech, meta["v_sn"], t0)
+    res = tr.run(waves, t_end, n_steps=n_steps,
+                 v0=torch.full((sys.n,), v_pre, dtype=torch.float64,
+                               device=sys.device))
+    swing = tech.v_sense_se
+    target = v_pre + (swing if cell.predischarge else -swing)
+    tc, valid = crossing_time(res["t"], res["rbl_near"], target,
+                              rising=cell.predischarge)
+    t_cell = float(tc) - t0 if bool(valid) else float("inf")
+    return float(t_cell), res

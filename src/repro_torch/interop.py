@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bank import BankConfig
+from repro_torch.core.spice.mna import MNASystem
 from repro_torch.core.techfile import SYN40, DeviceFlavor, TechFile
 from repro_torch.kernels.batched_solve.newton import FusedSpec
 from repro_torch.kernels.batched_solve.sparse import PRECISIONS
@@ -57,3 +58,19 @@ def fused_inputs_from_numpy(spec_fields: dict, pre: dict, Krhs, params, v0,
 
     pre_t = {k: t(v, cdt) for k, v in pre.items()}
     return spec, pre_t, t(Krhs, cdt), t(params, sdt), t(v0, sdt)
+
+
+def mna_system_from_numpy(G, C, dev: dict, didx: dict, src_node, src_wave,
+                          n: int, probes: dict, names, device="cuda"):
+    """The port's MNASystem from the reference system's fields as numpy:
+    G/C (n, n) and the per-device parameter arrays become float64 tensors
+    on `device`; the index maps stay numpy int32."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=torch.float64,
+                            device=device)
+
+    return MNASystem(t(G), t(C), {k: t(v) for k, v in dev.items()},
+                     {k: np.asarray(v, np.int32) for k, v in didx.items()},
+                     np.asarray(src_node, np.int32),
+                     np.asarray(src_wave, np.int32), int(n), dict(probes),
+                     list(names))

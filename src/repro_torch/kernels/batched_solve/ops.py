@@ -7,14 +7,17 @@ kernel (or raises); a CPU tensor runs the plain early-exit
 loop the kernel runs. Forward only: the implicit-function backward of the
 reference (`fixed_point_adjoint`) comes with differentiable DSE.
 
-The dense Gauss-Jordan solver (`solve`, `solve1`, `batched_solve`) is not
-ported yet.
+Dense Gauss-Jordan (`solve`, `solve1`, `batched_solve`): float32
+per-iteration dense solves of the scalar transient stepper
+(`make_stepper(solver="pallas")`), whatever the input dtype, the result
+cast back. A CUDA tensor launches `csrc/gauss_jordan.cu` (or raises); a
+CPU tensor runs its plain twin (`kernel.gauss_jordan_plain`).
 """
 from __future__ import annotations
 
-from repro_torch._deferred import deferred
 from repro_torch.kernels.batched_solve import newton as _newton
 from repro_torch.kernels.batched_solve.fused import fused_newton
+from repro_torch.kernels.batched_solve.kernel import batched_solve
 
 
 def fused_newton_step(spec, pre, Krhs, params, v0, *, iters, tol):
@@ -25,7 +28,15 @@ def fused_newton_step(spec, pre, Krhs, params, v0, *, iters, tol):
     return v
 
 
-_GJ = "Queue 2 item 2 (batched_solve Gauss-Jordan kernel)"
-batched_solve = deferred("ops.batched_solve", _GJ)
-solve1 = deferred("ops.solve1", _GJ)
-solve = deferred("ops.solve", _GJ)
+def solve1(J, r):
+    """Single system (N, N) @ x = (N,)."""
+    return batched_solve(J[None], r[None], block_b=1)[0]
+
+
+def solve(J, r, block_b: int = 8):
+    """Shape-dispatching entry: (N, N) or (B, N, N) systems. The kernel
+    computes in float32 whatever the input dtype; the float64 transient
+    anchor uses the "jnp" solver."""
+    if J.ndim == 2:
+        return solve1(J, r)
+    return batched_solve(J, r, block_b=block_b)

@@ -93,18 +93,28 @@ def test_non_gain_cells_and_deferred_paths():
 
 @pytest.mark.parametrize("solver", ["jnp", "sparse"])
 def test_transient_other_solvers_are_deferred(solver):
+    """The dense solver ("jnp") runs now; the sparse-LU engine is still
+    deferred."""
     from repro_torch.core import timing
     from repro_torch.core.bank import build_bank
     ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 16)))
+    system = ckt.build(device="cpu")
+    if solver == "jnp":
+        tr = Transient(system, solver=solver)
+        out = tr.run([([0.0, 1.0], [1.1, 1.1])] * 4, 1e-10, n_steps=5,
+                     v0=torch.full((system.n,), 1.1, dtype=torch.float64))
+        assert out["all"].shape == (5, system.n)
+        assert torch.isfinite(out["all"]).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transient(ckt.build(device="cpu"), solver=solver)
+        Transient(system, solver=solver)
 
 
 def test_run_lattice_rejects_unknown_overrides():
     from repro_torch.core import timing
     from repro_torch.core.bank import build_bank
     ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 16)))
-    tr = Transient(ckt.build(device="cpu"))
+    tr = Transient(ckt.build(device="cpu"), solver="pallas")
     with pytest.raises(ValueError, match="overrides"):
         tr.run_lattice(np.zeros((1, 4, 3)), np.zeros((1, 4, 3)), [1e-9], 4,
                        over_batches={"bogus": torch.ones(1)})

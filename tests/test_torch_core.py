@@ -129,7 +129,10 @@ def test_interop_round_trips_reference_configs():
 
 
 def test_deferred_parts_name_their_roadmap_item():
-    for fn in (timing.simulate_read, timing.analyze,
-               cells.v_sn_written_t, dse.evaluate):
+    from repro_torch.core import compiler
+    for fn in (compiler.GCRAMCompiler, cells.v_sn_written_t, dse.evaluate):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
+    b = bank.build_bank(bank.BankConfig(16, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        timing.analyze(b, parasitics="extracted")

@@ -29,9 +29,15 @@ def _imported(tree):
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     for need in ("core/spice/char_batch.py", "kernels/batched_solve/fused.py",
-                 "interop.py"):
+                 "interop.py", "core/compiler.py", "core/retention.py",
+                 "core/power.py", "kernels/batched_solve/kernel.py",
+                 "kernels/batched_solve/ref.py",
+                 "kernels/gc_array_step/kernel.py",
+                 "kernels/gc_array_step/ops.py",
+                 "kernels/gc_array_step/ref.py"):
         assert need in names
-    assert (PORT / "csrc" / "fused_newton.cu").exists()
+    for src in ("fused_newton", "gauss_jordan", "gc_array_step"):
+        assert (PORT / "csrc" / f"{src}.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

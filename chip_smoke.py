@@ -7,7 +7,9 @@ Phases:
   2. build every CUDA kernel of the port from the sources in this checkout
      (one nvcc per source, all at once), printing registers and spills;
   3. hold each kernel against its plain PyTorch version on the card, at
-     the paths' shapes and at a large batch, at every precision;
+     the paths' shapes and at a large batch, at every precision (the flash
+     attention kernel at the serving path's prefill shapes and at ragged,
+     offset, kv_len < Skv, G = 1 and G = 7 shapes, float32 and bfloat16);
   4. drive the lattice path, `characterize` over the default 96-point
      design lattice, with the launch counters set to 0 just before it;
      check that every step went through the fused Newton kernel and that
@@ -25,11 +27,24 @@ Phases:
   7. drive the array path, a 200-step selected-row write of a 512x512
      gain-cell array through the array-step kernel, counted, with the
      write-physics checks and the CPU plain run;
-  8. time the Gauss-Jordan and array-step kernels (CUDA events and the
-     profiler's device time), their plain versions, their bounds and
-     `torch.linalg.solve_ex` (and `torch.linalg.solve`, which also syncs
-     with the host), and the warm compile and `run_batch` walls;
-  9. print a {"kernels": [...]} JSON line, the card line, and as the last
+  8. drive the serving path: `llama3.2-1b` at full width in bf16 with
+     seeded weights, 16 requests (prompts of 128-1024 tokens, 64 new
+     tokens each, half greedy, half top-k sampled) through
+     `ServeEngine(n_slots=8, window=2048, decode_chunk=8)`, counted: every
+     prefill attention of every layer goes through the flash-attention
+     kernel; every request emits its budget; greedy streams equal host
+     mode's; a warm device-mode serve is timed (wall, and its own prefill
+     and decode spans by CUDA events); prefill logits through the kernel
+     match the plain flash version at each of the serve's prefill shapes;
+     then 2-layer full-width float32 greedy streams on the card against
+     the CPU;
+  9. time the Gauss-Jordan, array-step and flash-attention kernels (CUDA
+     events and the profiler's device time; flash attention at the
+     serve's four prefill shapes), their plain versions, their bounds and
+     the library calls (`torch.linalg.solve_ex` and `torch.linalg.solve`;
+     `scaled_dot_product_attention`), and the warm compile and
+     `run_batch` walls;
+ 10. print a {"kernels": [...]} JSON line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line is printed. Without a CUDA
@@ -39,6 +54,7 @@ Run from the root of the repository: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -619,6 +635,336 @@ def time_paths(card) -> None:
         f"warm: {time.perf_counter() - t0!r} s [{card}]")
 
 
+# -- the serving path (flash-attention kernel)
+SERVE_ARCH = "llama3.2-1b"
+SERVE_SLOTS, SERVE_WINDOW, SERVE_CHUNK = 8, 2048, 8
+SERVE_LENS = (128, 256, 512, 1024)      # four requests of each
+SERVE_MAX_NEW = 64
+# (B, Sq, Skv, H, K, hd, q_offset, kv_len): first the four prefill shapes
+# the serve launches (each admission group holds the two prompts of one
+# length, so B = 2 and Sq = Skv = the prompt length; timed), then B = 4 at
+# S = 512 and B = 1 at S = 1024, a ragged Sq, a q_offset slice,
+# kv_len < Skv, G = 1, G = 7 (qwen2-0.5b) and hd = 128 (llama3.2-3b)
+SERVE_FLASH_SHAPES = tuple((2, n, n, 32, 8, 64, 0, None) for n in SERVE_LENS)
+FLASH_SHAPES = SERVE_FLASH_SHAPES + (
+    (4, 512, 512, 32, 8, 64, 0, None),
+    (1, 1024, 1024, 32, 8, 64, 0, None),
+    (2, 100, 100, 32, 8, 64, 0, None),
+    (2, 32, 128, 4, 1, 16, 96, None),
+    (1, 96, 128, 8, 2, 32, 0, 77),
+    (2, 64, 64, 8, 8, 64, 0, None),
+    (2, 200, 200, 14, 2, 64, 0, None),
+    (2, 80, 80, 24, 8, 128, 0, None))
+# the running max refreshed every chunk_kv keys, several chunks per row
+# (the serve's prompts fit one 1024-key chunk): (shape, chunk_kv)
+FLASH_CHUNKED = (((1, 300, 300, 8, 2, 64, 0, 250), 32),
+                 ((1, 300, 300, 8, 2, 64, 0, 250), 40))
+# kernel vs plain: the reference's own limits (tests/test_kernels.py)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# prefill logits through the kernel vs through the plain flash version,
+# both bf16 on the card, relative to the logits' largest magnitude: the
+# bf16 tolerance of the reference's kernel test
+LOGITS_RTOL = 3e-2
+CPU_LAYERS, CPU_PROMPTS, CPU_NEW = 2, 2, 16     # card vs CPU, float32
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+
+
+def flash_inputs(shape, dtype, dev):
+    B, Sq, Skv, H, K, hd = shape[:6]
+    rng = np.random.default_rng(SEED + Sq + Skv + H)
+    return tuple(torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                                 device=dev)
+                 for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+
+
+def flash_work(shape, itemsize: int) -> tuple:
+    """(bytes, operations) of one flash-attention launch: Q, K and V read
+    once and O written once; 4 * hd operations (QK and PV multiply-adds)
+    per head and unmasked (query, key) pair."""
+    B, Sq, Skv, H, K, hd, off, kv_len = shape
+    kv_len = Skv if kv_len is None else kv_len
+    nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Skv * K * hd)
+    pairs = sum(min(kv_len, off + i + 1) for i in range(Sq))
+    return nbytes, 4 * B * H * hd * pairs
+
+
+def check_flash_attention(dev) -> float:
+    """Flash-attention kernel against its plain version on the card at
+    `FLASH_SHAPES` in float32 and bfloat16. Returns the largest error."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    worst = 0.0
+    cases = [(shape, 1024) for shape in FLASH_SHAPES] + list(FLASH_CHUNKED)
+    for dtype, atol in FLASH_ATOL.items():
+        for shape, chunk_kv in cases:
+            q, k, v = flash_inputs(shape, dtype, dev)
+            off, kv_len = shape[6], shape[7]
+            got = flash_attention_fwd(q, k, v, off, kv_len=kv_len,
+                                      chunk_kv=chunk_kv)
+            want = flash_attention_plain(q, k, v, q_offset=off,
+                                         kv_len=kv_len, chunk_kv=chunk_kv)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ok = (got.dtype == dtype and bool(torch.isfinite(got).all())
+                  and err <= atol)
+            log(f"check flash_attention {str(dtype)[6:]} (B, Sq, Skv, H, K, "
+                f"hd, q_offset, kv_len) = {shape}, chunk_kv {chunk_kv}: "
+                f"max|do| vs plain {err!r} (limit {atol}) "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"flash_attention check {shape} failed")
+            worst = max(worst, err)
+    return worst
+
+
+def serve_requests(vocab: int):
+    """The serve workload: 16 requests, four of each prompt length in
+    `SERVE_LENS` (seeded random tokens), 64 new tokens each; odd rids
+    sample at temperature 0.7 with top_k 40, even rids are greedy."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for i in range(4 * len(SERVE_LENS)):
+        n = SERVE_LENS[i % len(SERVE_LENS)]
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+            max_new_tokens=SERVE_MAX_NEW, temperature=0.7 if i % 2 else 0.0,
+            top_k=40))
+    return reqs
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.batched_solve import fused
+    from repro_torch.kernels.batched_solve.kernel import batched_solve
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.gc_array_step import ops
+    for fn in (fused.fused_newton, batched_solve, ops.gc_array_step,
+               flash_attention_fwd):
+        fn.launches = 0
+
+
+def run_engine(model, cfg, mode: str):
+    """Serve the workload once; returns (engine, {rid: tokens}, wall s)."""
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                      mode=mode, decode_chunk=SERVE_CHUNK, seed=SEED)
+    for r in serve_requests(cfg.vocab_size):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, _ = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, {r.rid: list(r.out_tokens) for r in done}, wall
+
+
+class PhaseEvents:
+    """Records a pair of CUDA events around each `Model.prefill` and
+    `Model.decode_loop` call of a serve, without synchronizing, so that
+    the serve's own prefill and decode spans can be read on the device's
+    clock after it (idle gaps inside a call, while the device waits for
+    the host to enqueue, count to that call's phase)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.pairs = {"prefill": [], "decode_loop": []}
+
+    def __enter__(self):
+        for name, pairs in self.pairs.items():
+            fn = getattr(self.model, name)
+
+            def timed(*args, _fn=fn, _pairs=pairs, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args, **kwargs)
+                end.record()
+                _pairs.append((start, end))
+                return out
+            setattr(self.model, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.pairs:
+            delattr(self.model, name)
+
+    def ms(self, name: str) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs[name])
+
+
+def prefill_logits_vs_plain(model, cfg, dev, n: int) -> tuple:
+    """Prefill logits of two n-token prompts (one admission group of the
+    serve) through the kernel and through the plain flash version, on the
+    card."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+    from repro_torch.models import attention
+    rng = np.random.default_rng(SEED + n)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n)),
+                           dtype=torch.int32, device=dev)
+    got, _, _ = model.prefill({"tokens": toks}, W=SERVE_WINDOW)
+    kernel_path = attention.flash_attention
+    attention.flash_attention = (
+        lambda q, k, v, **kw: flash_attention_plain(q, k, v, **kw))
+    try:
+        want, _, _ = model.prefill({"tokens": toks}, W=SERVE_WINDOW)
+    finally:
+        attention.flash_attention = kernel_path
+    torch.cuda.synchronize()
+    return (float((got - want).abs().max()), float(want.abs().max()),
+            bool(torch.isfinite(got).all()))
+
+
+def serve_path(model, cfg, dev, card) -> dict:
+    """The serving path at full width, counted: `llama3.2-1b` in bf16 with
+    seeded weights, 16 requests through `ServeEngine` in device mode with
+    the launch counters set to 0 just before the run and read just after;
+    then the same workload in host mode (which also warms the timed run),
+    once more in device mode with its prefill and decode spans timed by
+    `PhaseEvents`, and the prefill logits through the kernel against the
+    plain flash version at each of the serve's prefill shapes."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    reset_counts()
+    eng, streams, wall = run_engine(model, cfg, "device")
+    launches = flash_attention_fwd.launches
+    prefills = eng.admit_syncs
+    want = cfg.n_layers * prefills
+    ok = (launches == want and len(streams) == 4 * len(SERVE_LENS)
+          and all(len(t) == SERVE_MAX_NEW for t in streams.values())
+          and all(0 <= x < cfg.vocab_size for t in streams.values()
+                  for x in t))
+    log(f"serve path: {len(streams)} requests, "
+        f"{sum(map(len, streams.values()))} tokens in {wall:.2f} s (first "
+        f"run), {prefills} prefill dispatches, {eng.host_syncs} host syncs, "
+        f"flash_attention launches {launches} (expected {want}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("serve path counts or budgets")
+    _, host, _ = run_engine(model, cfg, "host")
+    greedy = [rid for rid in streams if rid % 2 == 0]
+    same = all(streams[rid] == host[rid] for rid in greedy)
+    log(f"serve path: greedy streams device vs host mode on the card: "
+        f"{'equal' if same else 'DIFFER'} ({len(greedy)} streams)")
+    if not same:
+        raise RuntimeError("serve path device vs host greedy streams")
+
+    # the warm serve, timed: wall on the host's clock, and the prefill and
+    # decode rates from this serve's own spans
+    with PhaseEvents(model) as phases:
+        eng, timed, wall = run_engine(model, cfg, "device")
+    pre_ms, dec_ms = phases.ms("prefill"), phases.ms("decode_loop")
+    n_prompt = sum(len(r.prompt) for r in serve_requests(cfg.vocab_size))
+    n_new = sum(map(len, timed.values()))
+    n_decoded = n_new - len(timed)        # the first tokens come of prefill
+    if timed != streams:
+        raise RuntimeError("the timed serve's streams differ from the "
+                           "counted run's")
+    times = dict(wall_s=wall, host_syncs=eng.host_syncs, tokens=n_new,
+                 prefill_ms=pre_ms, decode_ms=dec_ms,
+                 prefill_tok_s=n_prompt / (pre_ms / 1e3),
+                 decode_tok_s=n_decoded / (dec_ms / 1e3))
+    log(f"time serve {cfg.name} bf16 warm: {len(timed)} requests, "
+        f"{n_prompt} prompt + {n_new} generated tokens in {wall!r} s "
+        f"({n_new / wall!r} generated tok/s), {eng.host_syncs} host syncs; "
+        f"prefill spans {pre_ms!r} ms over {len(phases.pairs['prefill'])} "
+        f"dispatches ({times['prefill_tok_s']!r} prompt tok/s); decode "
+        f"spans {dec_ms!r} ms over {len(phases.pairs['decode_loop'])} "
+        f"chunks ({times['decode_tok_s']!r} tok/s for the {n_decoded} "
+        f"tokens emitted by decode) [{card}]")
+
+    for n in SERVE_LENS:
+        err, scale, finite = prefill_logits_vs_plain(model, cfg, dev, n)
+        ok = finite and err <= LOGITS_RTOL * scale
+        log(f"serve path: prefill logits (2 x {n} tokens) kernel vs plain "
+            f"flash on the card: max|d| {err!r} (limit {LOGITS_RTOL} x "
+            f"{scale!r}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"serve path prefill logits at {n} tokens")
+    return {"launches": launches, "prefills": prefills,
+            "n_layers": cfg.n_layers, "times": times}
+
+
+def serve_cpu_parity(dev) -> None:
+    """`llama3.2-1b` widths at float32 with 2 layers: weights made on the
+    CPU and moved to the card; greedy streams of 2 prompts x 16 tokens on
+    the card must equal the CPU run's. TF32 is off for the card's float32
+    products."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=CPU_LAYERS,
+                              dtype="float32")
+    cpu = Model(cfg, device="cpu", seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (96, 200)]
+    card = copy.deepcopy(cpu).to(dev)
+    streams = []
+    for model in (cpu, card):
+        eng = ServeEngine(cfg, model, n_slots=CPU_PROMPTS, window=256,
+                          decode_chunk=SERVE_CHUNK, seed=SEED)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=CPU_NEW))
+        done, _ = eng.run()
+        streams.append({r.rid: r.out_tokens for r in done})
+    same = streams[0] == streams[1] and all(
+        len(t) == CPU_NEW for t in streams[0].values())
+    log(f"serve card vs CPU: {cfg.name} widths, {CPU_LAYERS} layers, float32,"
+        f" {CPU_PROMPTS} prompts x {CPU_NEW} greedy tokens: "
+        f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise RuntimeError("serve card vs CPU greedy streams")
+
+
+def time_flash(dev, card) -> dict:
+    """The flash kernel at the serve's four prefill shapes (bf16): CUDA
+    events and profiler device time, the plain version, SDPA on the same
+    inputs, and the bound; and their mean over the four, which is the
+    serve's mean per launch (each shape is launched equally often)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    out = {}
+    for shape in SERVE_FLASH_SHAPES:
+        q, k, v = flash_inputs(shape, torch.bfloat16, dev)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kern = lambda: flash_attention_fwd(q, k, v)
+        plain = lambda: flash_attention_plain(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        p1, k1, l1 = time_ms(plain, 10), time_ms(kern, 50), time_ms(lib, 50)
+        k2, p2, l2 = time_ms(kern, 50), time_ms(plain, 10), time_ms(lib, 50)
+        d = device_ms(kern, "flash_attention_kernel", reps=20)
+        bound, by = bound_of(*flash_work(shape, 2), BF16_FLOPS)
+        label = f"B={shape[0]} S={shape[1]}"
+        out[label] = dict(ms=(k1 + k2) / 2, device_ms=d,
+                          plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
+                          bound_ms=bound, bound_by=by)
+        log(f"time flash_attention bf16 {label} H=32 K=8 hd=64: kernel "
+            f"{k1!r} / {k2!r} ms, device {d!r} ms, plain {p1!r} / {p2!r} ms, "
+            f"scaled_dot_product_attention {l1!r} / {l2!r} ms, bound "
+            f"{bound!r} ms ({by}) [{card}]")
+    rows = list(out.values())
+    mix = {key: statistics.fmean(r[key] for r in rows)
+           for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
+    by = [r["bound_by"] for r in rows]
+    mix["bound_by"] = max(set(by), key=by.count)
+    out["serve mix"] = mix
+    log(f"time flash_attention bf16, mean over the serve's prefill shapes "
+        f"(B=2, S in {SERVE_LENS}): kernel {mix['ms']!r} ms, device "
+        f"{mix['device_ms']!r} ms, plain {mix['plain_ms']!r} ms, "
+        f"scaled_dot_product_attention {mix['library_ms']!r} ms, bound "
+        f"{mix['bound_ms']!r} ms (mostly {mix['bound_by']}) [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -648,7 +994,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = build.build_all()
     log(f"build: {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
-    if sorted(paths) != sorted(build.SOURCES) or len(paths) != 3:
+    if sorted(paths) != sorted(build.SOURCES) or len(paths) != 4:
         log(f"FAILED: built {sorted(paths)}")
         return 1
     for kname, path in paths.items():
@@ -683,6 +1029,7 @@ def main() -> int:
                 max_err[label] = err
     gj_err = check_gauss_jordan(dev)
     gc_err = check_gc_array_step(dev)
+    fa_err = check_flash_attention(dev)
 
     # -- 4. the main path, counted
     n_groups = len(groups)
@@ -765,15 +1112,34 @@ def main() -> int:
     # -- 7. the array path, counted
     write_launches = write_path()
 
-    # -- 8. timing of the new paths and kernels, on the card (the walls
+    # -- 8. the serving path at full width, counted, and the card against
+    # the CPU at full width and reduced depth
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"serve path: {cfg.name} {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {model.param_count()} weights, "
+        f"seeded init on the card in {time.perf_counter() - t0:.2f} s")
+    served = serve_path(model, cfg, dev, card)
+    del model
+    torch.cuda.empty_cache()
+    serve_cpu_parity(dev)
+
+    # -- 9. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
     time_paths(card)
     new_times = time_new_kernels(dev, card)
+    fa_times = time_flash(dev, card)
 
-    # -- 9. summary lines
+    # -- 10. summary lines
     t16 = timings["B=16"]
     gj = new_times["gauss_jordan B=1"]
     gc = new_times["gc_array_step 512x512"]
+    fa = fa_times["serve mix"]
     kernels = [{
         "name": "fused_newton", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_newton.cu",
@@ -795,8 +1161,16 @@ def main() -> int:
         "launches": write_launches, "max_abs_err": gc_err,
         "ms": gc["ms"], "plain_ms": gc["plain_ms"],
         "bound_ms": gc["bound_ms"], "bound_by": gc["bound_by"],
-        "library_ms": None}]
-    if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0:
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+        "launches": served["launches"], "max_abs_err": fa_err,
+        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"]}]
+    if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0 \
+            or served["launches"] != served["n_layers"] * served["prefills"]:
         log("FAILED: a kernel of a path was never launched")
         return 1
     log(card)

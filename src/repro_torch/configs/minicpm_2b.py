@@ -1,0 +1,20 @@
+"""minicpm-2b [dense] — llama-like arch trained with the WSD schedule.
+
+40L d_model=2304 36H (GQA kv=36) d_ff=5760 vocab=122753  [arXiv:2404.06395; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2304,
+    n_heads=36,
+    n_kv_heads=36,
+    head_dim=64,
+    d_ff=5760,
+    vocab_size=122753,
+    tie_embeddings=True,
+    schedule="wsd",
+    rope_theta=10000.0,
+)

@@ -74,3 +74,49 @@ def mna_system_from_numpy(G, C, dev: dict, didx: dict, src_node, src_wave,
                      np.asarray(src_node, np.int32),
                      np.asarray(src_wave, np.int32), int(n), dict(probes),
                      list(names))
+
+
+def model_params_from_numpy(cfg, tree: dict, device="cuda"):
+    """The port's `Model` holding the reference's weights.
+
+    tree: the reference's parameter tree as numpy
+    (`jax.tree.map(np.asarray, params)`): "embed", "final_norm",
+    ["unembed"], and "blocks" with every leaf stacked over a leading layer
+    axis. Each block's slice goes to `blocks[i]` under the same names, in
+    `cfg`'s dtype on `device`. The head layouts are kept as they are, so
+    query head h stays kv head h // G, group h % G."""
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device="meta").to_empty(device=device)
+    dt = dtype_of(cfg)
+
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    values = {}
+    for name, a in flat({k: v for k, v in tree.items() if k != "blocks"}):
+        values[name] = a
+    for name, a in flat(tree["blocks"]):
+        if a.shape[0] != cfg.n_layers:
+            raise ValueError(f"blocks.{name} has {a.shape[0]} layers, the "
+                             f"config {cfg.n_layers}")
+        for layer in range(cfg.n_layers):
+            values[f"blocks.{layer}.{name}"] = a[layer]
+    params = dict(model.named_parameters())
+    if set(values) != set(params):
+        raise ValueError(f"parameter names differ: only in the tree "
+                         f"{sorted(set(values) - set(params))}, only in the "
+                         f"model {sorted(set(params) - set(values))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            a = values[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: tree {a.shape}, model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(np.asarray(a, np.float32)).to(dt))
+    return model

@@ -22,7 +22,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_newton", "gauss_jordan", "gc_array_step")
+SOURCES = ("fused_newton", "gauss_jordan", "gc_array_step",
+           "flash_attention")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

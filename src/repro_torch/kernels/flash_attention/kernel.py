@@ -1,0 +1,161 @@
+"""Causal GQA flash-attention forward as one CUDA kernel
+(`csrc/flash_attention.cu`), and its plain PyTorch version.
+
+Replaces the Pallas kernel `repro.kernels.flash_attention.kernel`
+(`flash_attention_fwd`, body `_kernel`): online softmax over key tiles
+with float32 scores, running max, row sum and accumulator, so no (Sq, Skv)
+score matrix reaches device memory. p is rounded to V's type before the
+PV product, as the model's blocked flash attention does
+(`repro/models/attention.py:137-141`); at float32 that is the identity.
+Keys at or beyond `kv_len`, and after the query where `causal`, are
+masked to -1e30; nothing is padded.
+
+`flash_attention_fwd` launches the kernel for CUDA tensors and raises if
+the build or the launch fails; CPU tensors take `flash_attention_plain`,
+the blocked pure-torch attention of `repro/models/attention.py:75-165`
+(chunks of `chunk_q` queries and `chunk_kv` keys, the same float32 online
+softmax and the same rounding of p). Both refresh the running max once
+per chunk of `chunk_kv` keys, the kernel by a first pass over the chunk's
+tiles for its max, so both round p against the same max; they differ
+only in the order of float32 sums.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)    # csrc launch_typed
+MAX_GROUP = 128                  # query heads per kv head (csrc MAX_ROWS)
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = [_INT] * 11 + [_PTR] * 5
+        lib.flash_attention_launch.restype = _INT
+        lib.flash_attention_error.argtypes = [_INT]
+        lib.flash_attention_error.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
+                          kv_len=None, chunk_q=512, chunk_kv=1024):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd); H = K * G -> (B, Sq, H,
+    hd) in q's dtype. Query i sits at position q_offset + i; keys at or
+    beyond kv_len (default Skv) are masked, and with `window` > 0 keys
+    `window` or more positions before the query."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    cq, ckv = min(chunk_q, Sq), min(chunk_kv, Skv)
+    kv_len = Skv if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qg = q.reshape(B, Sq, K, G, hd)
+    outs = []
+    for q0 in range(0, Sq, cq):
+        qq = qg[:, q0:q0 + cq].float()
+        n_q = qq.shape[1]
+        qpos = q_offset + torch.arange(q0, q0 + n_q, device=dev)
+        m = torch.full((B, K, G, n_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, K, G, n_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, K, G, n_q, hd), dtype=torch.float32,
+                          device=dev)
+        for k0 in range(0, Skv, ckv):
+            kk, vv = k[:, k0:k0 + ckv], v[:, k0:k0 + ckv]
+            kpos = torch.arange(k0, k0 + kk.shape[1], device=dev)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qq, kk.float()) * scale
+            if causal:
+                mask = kpos[None, :] <= qpos[:, None]
+            else:
+                mask = torch.ones((n_q, kk.shape[1]), dtype=torch.bool,
+                                  device=dev)
+            if window:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+            mask &= (kpos < kv_len)[None, :]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p32 = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p32.sum(dim=-1)
+            p = p32.to(vv.dtype).float()
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, vv.float())
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, n_q, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
+                        kv_len=None, chunk_q=512, chunk_kv=1024):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd), contiguous, all float32 or
+    all bfloat16 -> (B, Sq, H, hd). The one place that chooses between the
+    kernel and the plain version: CPU tensors run `flash_attention_plain`
+    (with `window`, `chunk_q` and `chunk_kv`), CUDA tensors launch the
+    kernel, which picks its own tiles, refreshes the running max once per
+    `chunk_kv` keys and takes no window. Counts each kernel launch in
+    `flash_attention_fwd.launches`."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     chunk_q=chunk_q, chunk_kv=chunk_kv)
+    if window:
+        raise NotImplementedError(
+            "sliding-window flash attention on the card is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 13)")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention takes q (B, Sq, H, hd) and k, v "
+                         f"(B, Skv, K, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    kv_len = Skv if kv_len is None else int(kv_len)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if H % K or H // K > MAX_GROUP:
+        raise ValueError(f"flash_attention kernel takes H a multiple of K "
+                         f"with at most {MAX_GROUP} heads per kv head; got "
+                         f"H={H}, K={K}")
+    if not 1 <= kv_len <= Skv or q_offset < 0 or min(B, Sq, Skv) < 1 \
+            or chunk_kv < 1:
+        raise ValueError(f"flash_attention kernel takes 1 <= kv_len <= Skv, "
+                         f"q_offset >= 0, chunk_kv >= 1 and nonempty inputs; "
+                         f"got kv_len={kv_len}, Skv={Skv}, q_offset="
+                         f"{q_offset}, chunk_kv={chunk_kv}, B={B}, Sq={Sq}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes q, k, v of one dtype, "
+                        f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    lib = _lib()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_launch(
+            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, K, hd,
+            int(q_offset), kv_len, int(bool(causal)), int(chunk_kv),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error(rc).decode())
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0

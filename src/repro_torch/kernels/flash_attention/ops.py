@@ -1,0 +1,24 @@
+"""Public entry of the flash-attention kernel (port of
+`repro.kernels.flash_attention.ops`).
+
+A CUDA tensor launches `csrc/flash_attention.cu` through
+`kernel.flash_attention_fwd` (or raises); a CPU tensor runs the plain
+blocked version `kernel.flash_attention_plain` with chunks of `bq`
+queries and `bkv` keys. The reference pads Sq and Skv to its blocks and
+leaves padded keys unmasked when q_offset + Sq > Skv; the port pads
+nothing and masks by bounds and by `kv_len`. The kernel picks its own
+tiles, so `bq` shapes only the plain version; both refresh the running
+softmax max once per `bkv` keys. The kernel takes no `window` (a CUDA
+call with one raises NotImplementedError).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+
+
+def flash_attention(q, k, v, q_offset=0, *, bq=256, bkv=512, causal=True,
+                    window=0, kv_len=None):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) -> (B, Sq, H, hd)."""
+    return flash_attention_fwd(q, k, v, q_offset, causal=causal,
+                               window=window, kv_len=kv_len, chunk_q=bq,
+                               chunk_kv=bkv)

@@ -1,0 +1,126 @@
+"""GQA attention: flash prefill path and KV-cache decode path (port of
+`repro.models.attention`, its non-ring, non-int8 form).
+
+Prefill attention (`attend_train` -> `flash_attention`) is the one caller
+of the flash-attention kernel: a CUDA tensor launches
+`csrc/flash_attention.cu` through `kernels.flash_attention.ops` (or
+raises), a CPU tensor runs the blocked pure-torch flash attention of the
+reference (`kernels.flash_attention.kernel.flash_attention_plain`).
+Decode attends one new token against the cache in plain torch, as the
+reference does outside any Pallas kernel; it writes the new K/V row into
+the cache in place.
+
+Not on this slice's path: the sequence-parallel flash (`_seqpar_flash`,
+`_want_seqpar`, XLA mesh code) and the encoder cross-attention
+(`cross_*`, the audio family). The int8 cache (`quantize_kv`) and the
+sliding-window ring (`seed_ring_cache`) are deferred.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch._deferred import deferred
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.common import dense_init, dtype_of, param, rope
+
+NEG_INF = -1e30
+
+quantize_kv = deferred("models.attention.quantize_kv",
+                       "Queue 1 item 13 (int8 KV cache)")
+seed_ring_cache = deferred("models.attention.seed_ring_cache",
+                           "Queue 1 item 13 (sliding-window ring cache)")
+
+
+class Attention(nn.Module):
+    """Parameters of one attention layer: wq (d, H, hd), wk/wv (d, K, hd),
+    wo (H, hd, d), and with `cfg.qkv_bias` bq (H, hd), bk/bv (K, hd)."""
+
+    def __init__(self, cfg, gen=None, device="cuda"):
+        super().__init__()
+        d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+        dt = dtype_of(cfg)
+        self.wq = param(dense_init(gen, (d, H, hd), dt, device=device))
+        self.wk = param(dense_init(gen, (d, K, hd), dt, device=device))
+        self.wv = param(dense_init(gen, (d, K, hd), dt, device=device))
+        self.wo = param(dense_init(gen, (H, hd, d), dt,
+                                   scale=1.0 / math.sqrt(H * hd),
+                                   device=device))
+        if cfg.qkv_bias:
+            self.bq = param(torch.zeros((H, hd), dtype=dt, device=device))
+            self.bk = param(torch.zeros((K, hd), dtype=dt, device=device))
+            self.bv = param(torch.zeros((K, hd), dtype=dt, device=device))
+
+
+def init(gen, cfg, device="cuda") -> Attention:
+    return Attention(cfg, gen, device=device)
+
+
+def _heads_in(x, w):
+    """einsum("bsd,dhk->bshk", x, w), contiguous."""
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+
+
+def _heads_out(o, w):
+    """einsum("bshk,hkd->bsd", o, w)."""
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
+
+
+def _project(p, x):
+    q, k, v = _heads_in(x, p.wq), _heads_in(x, p.wk), _heads_in(x, p.wv)
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return q, k, v
+
+
+def _qkv(p, x, cfg, positions):
+    q, k, v = _project(p, x)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    kv_len=None, chunk_q=512, chunk_kv=1024):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd); H = K * G. Returns (B, Sq,
+    H, hd). Float32 online softmax over KV chunks, GQA via head groups."""
+    return fa_ops.flash_attention(q, k, v, q_offset, bq=chunk_q,
+                                  bkv=chunk_kv, causal=causal, window=window,
+                                  kv_len=kv_len)
+
+
+def attend_train(p, x, positions, cfg):
+    """Full causal training/prefill attention. Returns (out (B, S, d), k,
+    v)."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = flash_attention(q, k, v, window=cfg.sliding_window)
+    return _heads_out(o, p.wo), k, v
+
+
+def decode(p, x, cache_k, cache_v, pos, cfg):
+    """x: (B, 1, d); cache_k/v: (B, W, K, hd); pos: (B,) int32 current
+    index. Writes the new K/V rows at min(pos, W - 1) into the caches in
+    place and returns (out (B, 1, d), cache_k, cache_v)."""
+    B = x.shape[0]
+    W = cache_k.shape[1]
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    slot = torch.clamp_max(pos.long(), W - 1)
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+
+    H, hd = q.shape[2], q.shape[3]
+    K = cache_k.shape[2]
+    qg = q.reshape(B, K, H // K, hd)
+    # float32 scores from the working dtype's operands
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                     cache_k.to(q.dtype).float()) / math.sqrt(hd)
+    valid = torch.arange(W, device=x.device)[None] <= slot[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", w.to(q.dtype),
+                     cache_v.to(q.dtype))
+    return _heads_out(o.reshape(B, 1, H, hd), p.wo), cache_k, cache_v

@@ -1,0 +1,122 @@
+"""Shared model building blocks: norms, activations, RoPE and init (port of
+`repro.models.common`).
+
+Weights live in `nn.Module`s whose parameter names follow the keys of the
+reference's parameter dicts ("scale", "wq", "w1", ...), so a reference
+tree maps onto a port module name for name (`repro_torch.interop`).
+Parameters are made with `requires_grad=False`: the serving slice runs no
+autograd. Random draws take an explicit `torch.Generator`.
+
+On one card there is no mesh: `shard_act` is the identity, and the
+reference's XLA mesh helpers (`sharding_ctx`, `logical_to_pspec`,
+`current_mesh`) have no counterpart.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch._deferred import deferred
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16, "float64": torch.float64}
+
+chunked_softmax_xent = deferred("models.common.chunked_softmax_xent",
+                                "Queue 1 item 13 (training)")
+
+
+def shard_act(x, *logical_axes):
+    """Activation sharding annotation of the reference; the identity on
+    one card."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A weight of the serving slice (no gradient)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def rms_norm(x, scale, eps=1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class Norm(nn.Module):
+    """Parameters of one norm (`norm_init`): "scale", plus "bias" for
+    layernorm."""
+
+    def __init__(self, cfg, device="cuda"):
+        super().__init__()
+        d, dt = cfg.d_model, dtype_of(cfg)
+        self.scale = param(torch.ones((d,), dtype=dt, device=device))
+        if cfg.norm == "layernorm":
+            self.bias = param(torch.zeros((d,), dtype=dt, device=device))
+
+
+def norm(x, p, cfg):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p.scale, p.bias, cfg.norm_eps)
+    return rms_norm(x, p.scale, cfg.norm_eps)
+
+
+def norm_init(cfg, device="cuda") -> Norm:
+    return Norm(cfg, device=device)
+
+
+def act_fn(name):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def dense_init(gen, shape, dtype, scale=None, device="cuda"):
+    """Truncated-normal fan-in init: N(0, 1) cut to [-3, 3] in float32,
+    times 1/sqrt(fan_in) (or `scale`), cast to `dtype`. On the meta device
+    only the shape is made."""
+    fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        t.mul_(std)
+    return t.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding, computed from integer positions
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta):
+    """x: (..., S, H, hd), positions: broadcastable to (..., S). Rotates
+    the two halves of the head dimension (not interleaved pairs), in
+    float32, and casts back to x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., None].float() * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

@@ -1,0 +1,88 @@
+"""Transformer blocks: the dense decoder block, attention plus gated MLP
+(port of `repro.models.transformer`, dense part). Residual wiring and
+norms live here, attention math in attention.py.
+
+The MoE, encoder and cross-attention decoder blocks are deferred.
+"""
+from __future__ import annotations
+
+import math
+
+from torch import nn
+
+from repro_torch._deferred import deferred
+from repro_torch.models import attention
+from repro_torch.models.common import act_fn, dense_init, dtype_of, norm, \
+    norm_init, param
+
+_LATER = "Queue 1 item 13 (model families beyond dense)"
+moe_block_init = deferred("models.transformer.moe_block_init", _LATER)
+enc_block_init = deferred("models.transformer.enc_block_init", _LATER)
+xdec_block_init = deferred("models.transformer.xdec_block_init", _LATER)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """w1, w3 (d, f) and w2 (f, d)."""
+
+    def __init__(self, cfg, gen=None, device="cuda"):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        dt = dtype_of(cfg)
+        self.w1 = param(dense_init(gen, (d, f), dt, device=device))
+        self.w3 = param(dense_init(gen, (d, f), dt, device=device))
+        self.w2 = param(dense_init(gen, (f, d), dt, scale=1.0 / math.sqrt(f),
+                                   device=device))
+
+
+def mlp_init(gen, cfg, device="cuda") -> MLP:
+    return MLP(cfg, gen, device=device)
+
+
+def mlp_apply(p, x, cfg):
+    act = act_fn(cfg.act)
+    h = act(x @ p.w1) * (x @ p.w3)
+    return h @ p.w2
+
+
+# ---------------------------------------------------------------------------
+# Dense decoder block (llama/qwen/minicpm backbone)
+# ---------------------------------------------------------------------------
+
+class DenseBlock(nn.Module):
+    """n1, attn, n2, mlp: the reference's dense block parameter dict."""
+
+    def __init__(self, cfg, gen=None, device="cuda"):
+        super().__init__()
+        self.n1 = norm_init(cfg, device=device)
+        self.attn = attention.init(gen, cfg, device=device)
+        self.n2 = norm_init(cfg, device=device)
+        self.mlp = mlp_init(gen, cfg, device=device)
+
+
+def dense_block_init(gen, cfg, device="cuda") -> DenseBlock:
+    return DenseBlock(cfg, gen, device=device)
+
+
+def dense_block_apply(p, x, positions, cfg):
+    a, _, _ = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
+                                     cfg)
+    x = x + a
+    return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg)
+
+
+def dense_block_prefill(p, x, positions, cfg):
+    a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
+                                     cfg)
+    x = x + a
+    return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg), (k, v)
+
+
+def dense_block_decode(p, x, ck, cv, pos, cfg):
+    a, ck, cv = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos,
+                                 cfg)
+    x = x + a
+    return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg), ck, cv

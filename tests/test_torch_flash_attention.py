@@ -1,0 +1,143 @@
+"""Port parity: the flash attention of `repro_torch` (its plain blocked
+version, which CPU tensors take) against the reference's Pallas kernel
+in interpret mode and against the reference model's blocked flash
+attention (`repro.models.attention.flash_attention`).
+
+Tolerances are the reference's own (tests/test_kernels.py): 2e-5 at
+float32 and 3e-2 at bfloat16 against the Pallas kernel. Against the
+model's flash attention at float32 the two compute the same chunked
+online softmax and differ only in the order of float32 sums, measured
+at most 7.2e-7 here, so the limit is 2e-6; at bfloat16 p is rounded to V's
+dtype in both, and the limit is the reference's 3e-2.
+"""
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):   # removed in JAX 0.9
+    jax.experimental.enable_x64 = \
+        lambda new_val=True: jax.enable_x64(new_val)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.flash_attention import ops as ref_fa_ops  # noqa: E402
+from repro.models import attention as ref_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402,E501
+from repro_torch.models import attention  # noqa: E402
+
+ATOL_KERNEL_F32, ATOL_BF16 = 2e-5, 3e-2
+ATOL_MODEL_F32 = 2e-6
+
+# tests/test_kernels.py:94-100: (B, Sq, Skv, H, K, hd, causal, q_offset)
+KERNEL_SHAPES = [
+    (2, 64, 64, 4, 2, 16, True, 0),
+    (1, 128, 128, 8, 8, 32, True, 0),
+    (2, 32, 128, 4, 1, 16, True, 96),    # seq-parallel shard slice
+    (1, 96, 128, 2, 2, 16, True, 0),     # non-divisible q
+    (1, 128, 128, 4, 2, 64, False, 0),
+]
+
+
+def _qkv(seed, B, Sq, Skv, H, K, hd, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(dtype),
+            rng.standard_normal((B, Skv, K, hd)).astype(dtype),
+            rng.standard_normal((B, Skv, K, hd)).astype(dtype))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a, np.float32), dtype=dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,off", KERNEL_SHAPES)
+def test_plain_matches_pallas_kernel(B, Sq, Skv, H, K, hd, causal, off):
+    q, k, v = _qkv(Sq + Skv, B, Sq, Skv, H, K, hd)
+    want = ref_fa_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), off, bq=32, bkv=32,
+                                      causal=causal)
+    before = kernel.flash_attention_fwd.launches
+    got = ops.flash_attention(_t(q), _t(k), _t(v), off, bq=32, bkv=32,
+                              causal=causal)
+    assert kernel.flash_attention_fwd.launches == before   # CPU: no launch
+    assert got.shape == (B, Sq, H, hd) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+    oracle = attention_ref(_t(q), _t(k), _t(v), causal=causal, q_offset=off)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+
+
+def test_plain_matches_pallas_kernel_bf16():
+    q, k, v = _qkv(7, 1, 64, 64, 4, 2, 32)
+    bf = jnp.bfloat16
+    want = ref_fa_ops.flash_attention(jnp.asarray(q, bf), jnp.asarray(k, bf),
+                                      jnp.asarray(v, bf), bq=32, bkv=32)
+    got = ops.flash_attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                              _t(v, torch.bfloat16), bq=32, bkv=32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=ATOL_BF16)
+
+
+# (B, Sq, Skv, H, K, hd, q_offset, kv_len, window, chunk_q, chunk_kv)
+MODEL_CASES = [
+    (2, 48, 48, 4, 2, 16, 0, None, 0, 16, 16),
+    (1, 40, 40, 8, 2, 16, 0, None, 0, 512, 1024),   # model defaults
+    (2, 32, 96, 4, 4, 16, 64, 80, 0, 16, 32),       # kv_len < Skv
+    (1, 24, 64, 7, 1, 32, 0, 30, 0, 8, 16),         # G = 7, kv_len < Skv
+    (1, 64, 64, 4, 2, 16, 0, None, 20, 16, 16),     # sliding window
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,off,kv_len,window,cq,ckv",
+                         MODEL_CASES)
+def test_plain_matches_model_flash(B, Sq, Skv, H, K, hd, off, kv_len, window,
+                                   cq, ckv):
+    q, k, v = _qkv(B * Sq + Skv, B, Sq, Skv, H, K, hd)
+    want = ref_attention.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, q_offset=off, kv_len=kv_len, chunk_q=cq, chunk_kv=ckv)
+    got = attention.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                    window=window, q_offset=off,
+                                    kv_len=kv_len, chunk_q=cq, chunk_kv=ckv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL_MODEL_F32)
+
+
+def test_plain_matches_model_flash_bf16():
+    q, k, v = _qkv(3, 2, 40, 40, 8, 2, 16)
+    bf = jnp.bfloat16
+    want = ref_attention.flash_attention(
+        jnp.asarray(q, bf), jnp.asarray(k, bf), jnp.asarray(v, bf),
+        chunk_q=16, chunk_kv=16)
+    got = attention.flash_attention(
+        _t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16),
+        chunk_q=16, chunk_kv=16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=ATOL_BF16)
+
+
+def test_kv_len_masks_what_the_reference_wrapper_pads():
+    """q_offset + Sq > Skv: the reference's Pallas wrapper pads KV with
+    zero keys and leaves them unmasked; the port masks by kv_len, so its
+    result equals the oracle on the real keys alone."""
+    q, k, v = _qkv(11, 1, 32, 40, 4, 2, 16)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), 16, bq=32, bkv=32)
+    oracle = attention_ref(_t(q), _t(k), _t(v), q_offset=16)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+
+
+def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
+    q, k, v = (_t(a) for a in _qkv(5, 1, 20, 20, 4, 2, 16))
+    before = kernel.flash_attention_fwd.launches
+    got = kernel.flash_attention_fwd(q, k, v, kv_len=15)
+    assert kernel.flash_attention_fwd.launches == before
+    want = kernel.flash_attention_plain(q, k, v, kv_len=15)
+    assert torch.equal(got, want)

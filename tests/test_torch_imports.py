@@ -34,9 +34,18 @@ def test_port_has_modules():
                  "kernels/batched_solve/ref.py",
                  "kernels/gc_array_step/kernel.py",
                  "kernels/gc_array_step/ops.py",
-                 "kernels/gc_array_step/ref.py"):
+                 "kernels/gc_array_step/ref.py",
+                 "kernels/flash_attention/kernel.py",
+                 "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ref.py", "configs/base.py",
+                 "configs/llama3_2_1b.py", "models/common.py",
+                 "models/attention.py", "models/transformer.py",
+                 "models/model.py", "serving/engine.py",
+                 "serving/sampling.py", "runtime/telemetry.py",
+                 "launch/serve.py"):
         assert need in names
-    for src in ("fused_newton", "gauss_jordan", "gc_array_step"):
+    for src in ("fused_newton", "gauss_jordan", "gc_array_step",
+                "flash_attention"):
         assert (PORT / "csrc" / f"{src}.cu").exists()
 
 

@@ -204,3 +204,115 @@ def test_retention_on_the_card_matches_cpu(cuda, name):
     np.testing.assert_allclose(
         retention.retention_vs_vt(cell, tech, vts, device=cuda),
         retention.retention_vs_vt(cell, tech, vts, device="cpu"), rtol=2e-6)
+
+
+# -- flash attention (csrc/flash_attention.cu) -------------------------------
+
+# (B, Sq, Skv, H, K, hd, q_offset, kv_len): the serving path's prefill
+# shapes (two prompts of one length per admission group), B = 4 at S = 512
+# and B = 1 at S = 1024, Sq not a multiple of the tile, a q_offset slice,
+# kv_len < Skv, G = 1, G = 7 and hd = 128
+FLASH_SHAPES = [(2, 128, 128, 32, 8, 64, 0, None),
+                (2, 256, 256, 32, 8, 64, 0, None),
+                (2, 512, 512, 32, 8, 64, 0, None),
+                (2, 1024, 1024, 32, 8, 64, 0, None),
+                (4, 512, 512, 32, 8, 64, 0, None),
+                (2, 80, 80, 24, 8, 128, 0, None),
+                (1, 1024, 1024, 32, 8, 64, 0, None),
+                (2, 100, 100, 32, 8, 64, 0, None),
+                (2, 32, 128, 4, 1, 16, 96, None),
+                (1, 96, 128, 8, 2, 32, 0, 77),
+                (2, 64, 64, 8, 8, 64, 0, None),
+                (2, 200, 200, 14, 2, 64, 0, None)]
+# the reference's own limits (tests/test_kernels.py)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_attention_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    B, Sq, Skv, H, K, hd, off, kv_len = shape
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                               device=cuda)
+               for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
+    assert flash_attention_fwd.launches == before + 1
+    want = flash_attention_plain(q, k, v, q_offset=off, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        FLASH_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk_kv", [32, 40, 1024])
+def test_flash_attention_follows_chunk_kv(cuda, chunk_kv, dtype):
+    """The running max is refreshed once per chunk_kv keys, as in the plain
+    version, also where a chunk ends inside a 32-key tile."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    rng = np.random.default_rng(chunk_kv)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                               device=cuda)
+               for s in ((1, 300, 8, 64), (1, 300, 2, 64), (1, 300, 2, 64)))
+    got = flash_attention_fwd(q, k, v, kv_len=250, chunk_kv=chunk_kv)
+    want = flash_attention_plain(q, k, v, kv_len=250, chunk_kv=chunk_kv)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        FLASH_ATOL[dtype]
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(q[..., :48].contiguous(),
+                            k[..., :48].contiguous(), k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_fwd(q, k, k, kv_len=9)
+    with pytest.raises(ValueError, match="chunk_kv"):
+        flash_attention_fwd(q, k, k, chunk_kv=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, k)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        flash_attention_fwd(q, k, k, window=4)
+
+
+def test_serving_on_the_card(cuda):
+    """A reduced llama3.2-1b at float32 served on the card: every prefill
+    attention launches the kernel, device and host modes give the same
+    greedy streams, and they equal the CPU run with the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServeEngine
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="float32")
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device="cpu", seed=0).to(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 12, 20, 7, 20)]
+    streams = []
+    for model, mode in ((card, "device"), (card, "host"), (cpu, "device")):
+        eng = ServeEngine(cfg, model, n_slots=2, window=64, mode=mode,
+                          decode_chunk=4)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        before = flash_attention_fwd.launches
+        done, _ = eng.run()
+        launches = flash_attention_fwd.launches - before
+        assert launches == (cfg.n_layers * eng.admit_syncs
+                            if model is card else 0)
+        streams.append({r.rid: r.out_tokens for r in done})
+    assert streams[0] == streams[1] == streams[2]

@@ -1,0 +1,177 @@
+"""Port parity of the serving slice as a whole: the `ServeEngine` of
+`repro_torch` against the JAX reference's on the same weights (carried
+over by `interop.model_params_from_numpy`), in both modes, with more
+requests than slots; and the two samplers.
+
+Reduced configs at float32. Greedy token streams must be equal token for
+token: the logits agree to ~1e-6 (tests/test_torch_models.py) and argmax
+takes the first maximum in both packages. `sample_host` is the
+reference's numpy code, so one np rng state gives the same token.
+`sample_tokens` draws from another random stream than the reference's
+(`torch.Generator` against `jax.random`), so it is held to the top-k
+support and to the greedy rows.
+"""
+import dataclasses
+
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):   # removed in JAX 0.9
+    jax.experimental.enable_x64 = \
+        lambda new_val=True: jax.enable_x64(new_val)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.models.model import Model as RefModel  # noqa: E402
+from repro.serving import ServeEngine as RefEngine  # noqa: E402
+from repro.serving.engine import Request as RefRequest  # noqa: E402
+from repro.serving.sampling import sample_host as ref_sample_host  # noqa: E402,E501
+from repro.serving.sampling import sample_tokens as ref_sample_tokens  # noqa: E402,E501
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.runtime import TelemetryCollector  # noqa: E402
+from repro_torch.serving import (Request, ServeEngine, sample_host,  # noqa: E402,E501
+                                 sample_tokens)
+
+ARCHS = ["llama3.2-1b", "qwen2-0.5b"]
+PROMPT_LENS = (6, 6, 9, 6, 9)      # two admission groups, 5 requests
+N_SLOTS, MAX_NEW, CHUNK = 2, 6, 4
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    arch = request.param
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                                  dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = RefModel(ref_cfg).init(jax.random.key(0))
+    model = interop.model_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, params), device="cpu")
+    return ref_cfg, params, cfg, model
+
+
+def _prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def _serve(engine, request_cls, prompts, **req):
+    for i, p in enumerate(prompts):
+        engine.submit(request_cls(rid=i, prompt=p, max_new_tokens=MAX_NEW,
+                                  **req))
+    done, _ = engine.run()
+    return {r.rid: list(r.out_tokens) for r in done}
+
+
+@pytest.mark.parametrize("mode", ["device", "host"])
+def test_greedy_streams_match_reference(pair, mode):
+    ref_cfg, params, cfg, model = pair
+    prompts = _prompts(cfg.vocab_size)
+    kw = dict(n_slots=N_SLOTS, window=32, mode=mode, decode_chunk=CHUNK)
+    want = _serve(RefEngine(ref_cfg, params, **kw), RefRequest, prompts)
+    eng = ServeEngine(cfg, model, **kw)
+    got = _serve(eng, Request, prompts)
+    assert got == want
+    assert all(len(t) == MAX_NEW for t in got.values())
+    assert len(got) == len(prompts) > N_SLOTS
+    assert eng.admit_syncs >= 2     # at least one admission per group
+
+
+def test_device_and_host_modes_agree_and_telemetry_adds_no_sync(pair):
+    _, _, cfg, model = pair
+    prompts = _prompts(cfg.vocab_size)
+    kw = dict(n_slots=N_SLOTS, window=32, decode_chunk=CHUNK)
+    host = _serve(ServeEngine(cfg, model, mode="host", **kw), Request,
+                  prompts)
+    plain = ServeEngine(cfg, model, **kw)
+    dev = _serve(plain, Request, prompts)
+    tel = TelemetryCollector()
+    watched = ServeEngine(cfg, model, telemetry=tel, **kw)
+    assert _serve(watched, Request, prompts) == dev == host
+    assert watched.host_syncs == plain.host_syncs
+    win = tel.snapshot()
+    assert win.n_admitted == win.n_retired == len(prompts)
+    assert win.prefill_tokens == sum(PROMPT_LENS)
+    assert win.decode_tokens == len(prompts) * (MAX_NEW - 1)
+    assert sorted(s.rid for s in watched.request_log) == list(range(5))
+
+
+def test_budgets_and_eos_stop_inside_a_chunk(pair):
+    _, _, cfg, model = pair
+    prompt = _prompts(cfg.vocab_size)[0]
+    eng = ServeEngine(cfg, model, n_slots=2, window=32, decode_chunk=CHUNK)
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=7))
+    base = eng.run()[0][0].out_tokens
+    eos = base[2]                   # stops at its first occurrence
+    stop = base.index(eos) + 1
+    eng = ServeEngine(cfg, model, n_slots=2, window=32, decode_chunk=CHUNK)
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=7, eos_id=eos))
+    eng.submit(Request(rid=1, prompt=prompt, max_new_tokens=1))
+    eng.submit(Request(rid=2, prompt=prompt, max_new_tokens=5))
+    done = {r.rid: r.out_tokens for r in eng.run()[0]}
+    assert done[0] == base[:stop]
+    assert done[1] == base[:1]      # finished at prefill
+    assert done[2] == base[:5]      # frozen mid-chunk at its budget
+
+
+def test_sample_host_equals_reference():
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((12, 40)).astype(np.float32) * 3
+    for temp, top_k in ((0.0, 40), (0.7, 40), (1.3, 5), (0.5, 1)):
+        a, b = np.random.default_rng(9), np.random.default_rng(9)
+        got = [sample_host(row, temp, top_k, a) for row in logits]
+        want = [ref_sample_host(row, temp, top_k, b) for row in logits]
+        assert got == want
+
+
+def test_sample_tokens_draws_from_the_top_k_support():
+    rng = np.random.default_rng(6)
+    B, V, k_max = 6, 50, 8
+    logits = rng.standard_normal((B, V)).astype(np.float32) * 2
+    temp = np.array([0.0, 0.7, 1.5, 0.7, 0.0, 2.0], np.float32)
+    top_k = np.array([5, 3, 1, 60, 4, 10], np.int32)
+    want_greedy = np.asarray(ref_sample_tokens(
+        jnp.asarray(logits), jax.random.key(0), jnp.asarray(temp),
+        jnp.asarray(top_k), k_max=k_max))
+    gen = torch.Generator().manual_seed(0)
+    order = np.argsort(-logits, axis=-1)
+    seen = [set() for _ in range(B)]
+    for _ in range(200):
+        tok = sample_tokens(torch.tensor(logits), gen, torch.tensor(temp),
+                            torch.tensor(top_k), k_max=k_max).numpy()
+        assert tok.dtype == np.int32
+        for b in range(B):
+            if temp[b] <= 0:
+                assert tok[b] == want_greedy[b] == np.argmax(logits[b])
+            else:
+                k = min(max(int(top_k[b]), 1), k_max)
+                assert tok[b] in set(order[b, :k])
+            seen[b].add(int(tok[b]))
+    assert seen[2] == {int(order[2, 0])}            # top_k 1
+    assert len(seen[5]) > 1                          # really sampled
+
+
+def test_launcher_serves_on_the_cpu_and_defers_what_is_not_ported(capsys):
+    assert serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4", "--stats"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "[telemetry]" in out
+    for flag in (["--kv-dtype", "int8"], ["--ckpt-dir", "ckpt"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
+                        "cpu"] + flag)
+
+
+def test_engine_serves_only_a_port_model():
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    with pytest.raises(TypeError):
+        ServeEngine(cfg, {"embed": np.zeros(3)})
+    with pytest.raises(ValueError):
+        ServeEngine(cfg, Model(cfg, device="cpu"), mode="batch")

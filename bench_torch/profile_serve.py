@@ -13,12 +13,14 @@ extra synchronization, so the pipelining is the engine's own):
   reconcile  `_reconcile`: the wait for a chunk's tokens and the host
              bookkeeping;
 and then a third time under `torch.profiler` (CPU and CUDA activities):
-device time by kernel name, and the device time inside `Model.prefill`
-and `Model.decode_loop`, marked with `record_function`. The device's
-busy share is the summed kernel time (one stream, so kernels do not
-overlap) over the wall of the second, unprofiled serve: the profiler's
-own host cost stretches the profiled wall (about twice as long) but not
-the kernels. The profiled wall's share is kept too, labelled as such.
+device time by kernel name, the device time of the prefill attention
+kernel (the bf16 tensor-core flash-attention kernel,
+`flash_attention_tc_kernel`) on its own line, and the device time inside
+`Model.prefill` and `Model.decode_loop`, marked with `record_function`.
+The device's busy share is the summed kernel time (one stream, so
+kernels do not overlap) over the wall of the second, unprofiled serve:
+the profiler's own host cost stretches the profiled wall (about twice as
+long) but not the kernels. The profiled wall's share is kept too, labelled as such.
 Prints a summary and writes everything to chiprun_out/profile_serve.json.
 Needs a CUDA device; exits nonzero without one.
 
@@ -35,6 +37,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+FLASH_KERNEL = "flash_attention_tc_kernel"   # every bf16 prefill attention
 
 
 def _wrap(obj, name, sink, label=None, annotate=False):
@@ -124,6 +127,9 @@ def main() -> int:
                          "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
+    flash = [r for r in rows if FLASH_KERNEL in r["name"]]
+    flash_ms = sum(r["device_ms"] for r in flash)
+    flash_n = sum(r["count"] for r in flash)
     out = {"card": card, "config": "llama3.2-1b bf16, 16 requests, 8 slots, "
            "window 2048, decode_chunk 8",
            "wall_s": wall_s, "stages_host_ms": stages_ms,
@@ -132,6 +138,8 @@ def main() -> int:
            "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
            "device_idle_share_of_profiled_wall":
                1.0 - busy_ms / prof_wall_ms,
+           "flash_kernel": {"name": FLASH_KERNEL, "count": flash_n,
+                            "device_ms": flash_ms},
            "ranges": ranges, "kernels": rows}
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
@@ -147,10 +155,12 @@ def main() -> int:
     for name, r in ranges.items():
         print(f"  {name}: x{r['count']}, host {r['host_ms']!r} ms, device "
               f"{r['device_ms']!r} ms")
+    print(f"  {FLASH_KERNEL}: x{flash_n}, device {flash_ms!r} ms"
+          f"{f' ({flash_ms / flash_n!r} ms each)' if flash_n else ''}")
     for r in rows[:15]:
         print(f"  {r['device_ms']!r:>24} ms  x{r['count']:<6} "
               f"{r['name'][:90]}")
-    return 0 if rows else 1
+    return 0 if rows and flash_n else 1
 
 
 if __name__ == "__main__":

@@ -7,9 +7,10 @@ Phases:
   2. build every CUDA kernel of the port from the sources in this checkout
      (one nvcc per source, all at once), printing registers and spills;
   3. hold each kernel against its plain PyTorch version on the card, at
-     the paths' shapes and at a large batch, at every precision (the flash
-     attention kernel at the serving path's prefill shapes and at ragged,
-     offset, kv_len < Skv, G = 1 and G = 7 shapes, float32 and bfloat16);
+     the paths' shapes and at a large batch, at every precision (flash
+     attention at the serving path's prefill shapes and at ragged, offset,
+     kv_len < Skv, G = 1 and G = 7 shapes: bfloat16 through the
+     tensor-core kernel, float32 through the float32 kernel);
   4. drive the lattice path, `characterize` over the default 96-point
      design lattice, with the launch counters set to 0 just before it;
      check that every step went through the fused Newton kernel and that
@@ -31,19 +32,22 @@ Phases:
      seeded weights, 16 requests (prompts of 128-1024 tokens, 64 new
      tokens each, half greedy, half top-k sampled) through
      `ServeEngine(n_slots=8, window=2048, decode_chunk=8)`, counted: every
-     prefill attention of every layer goes through the flash-attention
-     kernel; every request emits its budget; greedy streams equal host
+     prefill attention of every layer goes through the bf16 tensor-core
+     flash-attention kernel; every request emits its budget; greedy streams
+     equal host
      mode's; a warm device-mode serve is timed (wall, and its own prefill
      and decode spans by CUDA events); prefill logits through the kernel
      match the plain flash version at each of the serve's prefill shapes;
      then 2-layer full-width float32 greedy streams on the card against
-     the CPU;
-  9. time the Gauss-Jordan, array-step and flash-attention kernels (CUDA
-     events and the profiler's device time; flash attention at the
-     serve's four prefill shapes), their plain versions, their bounds and
-     the library calls (`torch.linalg.solve_ex` and `torch.linalg.solve`;
-     `scaled_dot_product_attention`), and the warm compile and
-     `run_batch` walls;
+     the CPU, counted: every prefill attention goes through the float32
+     flash-attention kernel;
+  9. time the Gauss-Jordan, array-step and both flash-attention kernels
+     (CUDA events and the profiler's device time; the tensor-core kernel
+     at the serve's four prefill shapes, the float32 kernel at the float32
+     serve's two), their plain versions, their bounds and the library
+     calls (`torch.linalg.solve_ex` and `torch.linalg.solve`;
+     `scaled_dot_product_attention` in the same call), and the warm
+     compile and `run_batch` walls;
  10. print a {"kernels": [...]} JSON line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 
@@ -666,6 +670,9 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # bf16 tolerance of the reference's kernel test
 LOGITS_RTOL = 3e-2
 CPU_LAYERS, CPU_PROMPTS, CPU_NEW = 2, 2, 16     # card vs CPU, float32
+CPU_LENS = (96, 200)        # its prompts: two admission groups of B = 1
+# the float32 kernel's shapes in that serve (timed)
+F32_FLASH_SHAPES = tuple((1, n, n, 32, 8, 64, 0, None) for n in CPU_LENS)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 
 
@@ -688,32 +695,52 @@ def flash_work(shape, itemsize: int) -> tuple:
     return nbytes, 4 * B * H * hd * pairs
 
 
-def check_flash_attention(dev) -> float:
-    """Flash-attention kernel against its plain version on the card at
-    `FLASH_SHAPES` in float32 and bfloat16. Returns the largest error."""
+def flash_counts() -> dict:
+    """Launches so far of each flash-attention kernel, by the dtype it
+    serves."""
+    from repro_torch.kernels.flash_attention import kernel
+    return {torch.bfloat16: kernel.flash_attention_tc.launches,
+            torch.float32: kernel.flash_attention_f32.launches}
+
+
+def check_flash_attention(dev) -> dict:
+    """Both flash-attention kernels against the plain version on the card
+    at `FLASH_SHAPES` and `FLASH_CHUNKED`: bfloat16 through the tensor-core
+    kernel, float32 through the float32 kernel, each call launching the
+    kernel of its dtype once and the other not at all. Returns the largest
+    error by dtype."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
-    worst = 0.0
+    worst = {}
     cases = [(shape, 1024) for shape in FLASH_SHAPES] + list(FLASH_CHUNKED)
     for dtype, atol in FLASH_ATOL.items():
+        other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+        name = ("flash_attention_tc" if dtype == torch.bfloat16
+                else "flash_attention")
+        worst[dtype] = 0.0
         for shape, chunk_kv in cases:
             q, k, v = flash_inputs(shape, dtype, dev)
             off, kv_len = shape[6], shape[7]
+            before = flash_counts()
             got = flash_attention_fwd(q, k, v, off, kv_len=kv_len,
                                       chunk_kv=chunk_kv)
+            after = flash_counts()
             want = flash_attention_plain(q, k, v, q_offset=off,
                                          kv_len=kv_len, chunk_kv=chunk_kv)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            ok = (got.dtype == dtype and bool(torch.isfinite(got).all())
-                  and err <= atol)
-            log(f"check flash_attention {str(dtype)[6:]} (B, Sq, Skv, H, K, "
-                f"hd, q_offset, kv_len) = {shape}, chunk_kv {chunk_kv}: "
-                f"max|do| vs plain {err!r} (limit {atol}) "
+            routed = (after[dtype] == before[dtype] + 1
+                      and after[other] == before[other])
+            ok = (routed and got.dtype == dtype
+                  and bool(torch.isfinite(got).all()) and err <= atol)
+            log(f"check {name} {str(dtype)[6:]} (B, Sq, Skv, H, K, hd, "
+                f"q_offset, kv_len) = {shape}, chunk_kv {chunk_kv}: max|do| "
+                f"vs plain {err!r} (limit {atol}), "
+                f"{'one launch' if routed else 'WRONG KERNEL'} "
                 f"{'ok' if ok else 'FAILED'}")
             if not ok:
                 raise RuntimeError(f"flash_attention check {shape} failed")
-            worst = max(worst, err)
+            worst[dtype] = max(worst[dtype], err)
     return worst
 
 
@@ -736,10 +763,10 @@ def serve_requests(vocab: int):
 def reset_counts() -> None:
     from repro_torch.kernels.batched_solve import fused
     from repro_torch.kernels.batched_solve.kernel import batched_solve
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.gc_array_step import ops
     for fn in (fused.fused_newton, batched_solve, ops.gc_array_step,
-               flash_attention_fwd):
+               kernel.flash_attention_tc, kernel.flash_attention_f32):
         fn.launches = 0
 
 
@@ -823,21 +850,25 @@ def serve_path(model, cfg, dev, card) -> dict:
     then the same workload in host mode (which also warms the timed run),
     once more in device mode with its prefill and decode spans timed by
     `PhaseEvents`, and the prefill logits through the kernel against the
-    plain flash version at each of the serve's prefill shapes."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    plain flash version at each of the serve's prefill shapes. Every
+    prefill attention of the counted run goes through the bf16 tensor-core
+    kernel, none through the float32 one."""
     reset_counts()
     eng, streams, wall = run_engine(model, cfg, "device")
-    launches = flash_attention_fwd.launches
+    counts = flash_counts()
+    launches, f32_launches = counts[torch.bfloat16], counts[torch.float32]
     prefills = eng.admit_syncs
     want = cfg.n_layers * prefills
-    ok = (launches == want and len(streams) == 4 * len(SERVE_LENS)
+    ok = (launches == want and f32_launches == 0
+          and len(streams) == 4 * len(SERVE_LENS)
           and all(len(t) == SERVE_MAX_NEW for t in streams.values())
           and all(0 <= x < cfg.vocab_size for t in streams.values()
                   for x in t))
     log(f"serve path: {len(streams)} requests, "
         f"{sum(map(len, streams.values()))} tokens in {wall:.2f} s (first "
         f"run), {prefills} prefill dispatches, {eng.host_syncs} host syncs, "
-        f"flash_attention launches {launches} (expected {want}) "
+        f"flash_attention_tc launches {launches} (expected {want}), float32 "
+        f"flash_attention launches {f32_launches} (expected 0) "
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise RuntimeError("serve path counts or budgets")
@@ -885,14 +916,16 @@ def serve_path(model, cfg, dev, card) -> dict:
             "n_layers": cfg.n_layers, "times": times}
 
 
-def serve_cpu_parity(dev) -> None:
+def serve_cpu_parity(dev) -> int:
     """`llama3.2-1b` widths at float32 with 2 layers: weights made on the
     CPU and moved to the card; greedy streams of 2 prompts x 16 tokens on
     the card must equal the CPU run's. TF32 is off for the card's float32
-    products."""
+    products. The card's run is counted: every prefill attention goes
+    through the float32 flash-attention kernel. Returns its launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.models.model import Model
     from repro_torch.serving import Request, ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -902,7 +935,7 @@ def serve_cpu_parity(dev) -> None:
     cpu = Model(cfg, device="cpu", seed=SEED)
     rng = np.random.default_rng(SEED + 2)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (96, 200)]
+               for n in CPU_LENS]
     card = copy.deepcopy(cpu).to(dev)
     streams = []
     for model in (cpu, card):
@@ -910,29 +943,41 @@ def serve_cpu_parity(dev) -> None:
                           decode_chunk=SERVE_CHUNK, seed=SEED)
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=CPU_NEW))
+        if model is card:
+            reset_counts()
         done, _ = eng.run()
         streams.append({r.rid: r.out_tokens for r in done})
+    counts = flash_counts()
+    launches, tc_launches = counts[torch.float32], counts[torch.bfloat16]
+    want = CPU_LAYERS * eng.admit_syncs
     same = streams[0] == streams[1] and all(
         len(t) == CPU_NEW for t in streams[0].values())
     log(f"serve card vs CPU: {cfg.name} widths, {CPU_LAYERS} layers, float32,"
         f" {CPU_PROMPTS} prompts x {CPU_NEW} greedy tokens: "
-        f"{'equal' if same else 'DIFFER'}")
+        f"{'equal' if same else 'DIFFER'}; float32 flash_attention launches "
+        f"{launches} (expected {want}), flash_attention_tc launches "
+        f"{tc_launches} (expected 0)")
     if not same:
         raise RuntimeError("serve card vs CPU greedy streams")
+    if launches != want or tc_launches != 0:
+        raise RuntimeError("serve card vs CPU flash launch counts")
+    return launches
 
 
-def time_flash(dev, card) -> dict:
-    """The flash kernel at the serve's four prefill shapes (bf16): CUDA
-    events and profiler device time, the plain version, SDPA on the same
-    inputs, and the bound; and their mean over the four, which is the
-    serve's mean per launch (each shape is launched equally often)."""
+def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
+    """One flash-attention kernel at `shapes` in `dtype`: CUDA events
+    (plain, kernel, SDPA, kernel, plain, SDPA in turns) and profiler device
+    time, the bound, the achieved rate (the bound's operations over the
+    events time); and their mean over the shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FLOPS[dtype]
+    itemsize = torch.finfo(dtype).bits // 8
     out = {}
-    for shape in SERVE_FLASH_SHAPES:
-        q, k, v = flash_inputs(shape, torch.bfloat16, dev)
+    for shape in shapes:
+        q, k, v = flash_inputs(shape, dtype, dev)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kern = lambda: flash_attention_fwd(q, k, v)
         plain = lambda: flash_attention_plain(q, k, v)
@@ -940,29 +985,47 @@ def time_flash(dev, card) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True)
         p1, k1, l1 = time_ms(plain, 10), time_ms(kern, 50), time_ms(lib, 50)
         k2, p2, l2 = time_ms(kern, 50), time_ms(plain, 10), time_ms(lib, 50)
-        d = device_ms(kern, "flash_attention_kernel", reps=20)
-        bound, by = bound_of(*flash_work(shape, 2), BF16_FLOPS)
+        d = device_ms(kern, kernel_name, reps=20)
+        nbytes, flops = flash_work(shape, itemsize)
+        bound, by = bound_of(nbytes, flops, peak)
         label = f"B={shape[0]} S={shape[1]}"
-        out[label] = dict(ms=(k1 + k2) / 2, device_ms=d,
-                          plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
-                          bound_ms=bound, bound_by=by)
-        log(f"time flash_attention bf16 {label} H=32 K=8 hd=64: kernel "
-            f"{k1!r} / {k2!r} ms, device {d!r} ms, plain {p1!r} / {p2!r} ms, "
-            f"scaled_dot_product_attention {l1!r} / {l2!r} ms, bound "
-            f"{bound!r} ms ({by}) [{card}]")
+        ms = (k1 + k2) / 2
+        out[label] = dict(ms=ms, device_ms=d, plain_ms=(p1 + p2) / 2,
+                          library_ms=(l1 + l2) / 2, bound_ms=bound,
+                          bound_by=by, tflops=flops / (ms * 1e-3) / 1e12)
+        log(f"time {kernel_name} {str(dtype)[6:]} {label} H={shape[3]} "
+            f"K={shape[4]} hd={shape[5]}: kernel {k1!r} / {k2!r} ms, device "
+            f"{d!r} ms, plain {p1!r} / {p2!r} ms, "
+            f"scaled_dot_product_attention {l1!r} / {l2!r} ms (kernel / SDPA "
+            f"{ms / out[label]['library_ms']!r}), bound {bound!r} ms ({by}), "
+            f"{out[label]['tflops']!r} TFLOP/s [{card}]")
     rows = list(out.values())
-    mix = {key: statistics.fmean(r[key] for r in rows)
+    mix = {key: (None if any(r[key] is None for r in rows)
+                 else statistics.fmean(r[key] for r in rows))
            for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                       "bound_ms")}
+                       "bound_ms", "tflops")}
     by = [r["bound_by"] for r in rows]
     mix["bound_by"] = max(set(by), key=by.count)
-    out["serve mix"] = mix
-    log(f"time flash_attention bf16, mean over the serve's prefill shapes "
-        f"(B=2, S in {SERVE_LENS}): kernel {mix['ms']!r} ms, device "
+    out["mix"] = mix
+    log(f"time {kernel_name} {str(dtype)[6:]}, mean over "
+        f"{[s[1] for s in shapes]}: kernel {mix['ms']!r} ms, device "
         f"{mix['device_ms']!r} ms, plain {mix['plain_ms']!r} ms, "
-        f"scaled_dot_product_attention {mix['library_ms']!r} ms, bound "
-        f"{mix['bound_ms']!r} ms (mostly {mix['bound_by']}) [{card}]")
+        f"scaled_dot_product_attention {mix['library_ms']!r} ms (kernel / "
+        f"SDPA {mix['ms'] / mix['library_ms']!r}), bound {mix['bound_ms']!r}"
+        f" ms (mostly {mix['bound_by']}) [{card}]")
     return out
+
+
+def time_flash(dev, card) -> dict:
+    """The tensor-core kernel at the bf16 serve's four prefill shapes and
+    the float32 kernel at the float32 serve's two; each mean is the serve's
+    mean per launch (each shape is launched equally often)."""
+    return {"tc": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
+                                    torch.bfloat16,
+                                    "flash_attention_tc_kernel"),
+            "f32": time_flash_shapes(dev, card, F32_FLASH_SHAPES,
+                                     torch.float32,
+                                     "flash_attention_kernel")}
 
 
 def main() -> int:
@@ -994,7 +1057,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = build.build_all()
     log(f"build: {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
-    if sorted(paths) != sorted(build.SOURCES) or len(paths) != 4:
+    if sorted(paths) != sorted(build.SOURCES) or len(paths) != 5:
         log(f"FAILED: built {sorted(paths)}")
         return 1
     for kname, path in paths.items():
@@ -1127,7 +1190,7 @@ def main() -> int:
     served = serve_path(model, cfg, dev, card)
     del model
     torch.cuda.empty_cache()
-    serve_cpu_parity(dev)
+    f32_launches = serve_cpu_parity(dev)
 
     # -- 9. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
@@ -1139,7 +1202,7 @@ def main() -> int:
     t16 = timings["B=16"]
     gj = new_times["gauss_jordan B=1"]
     gc = new_times["gc_array_step 512x512"]
-    fa = fa_times["serve mix"]
+    fa, f32 = fa_times["tc"]["mix"], fa_times["f32"]["mix"]
     kernels = [{
         "name": "fused_newton", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_newton.cu",
@@ -1165,7 +1228,14 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
-        "launches": served["launches"], "max_abs_err": fa_err,
+        "launches": f32_launches, "max_abs_err": fa_err[torch.float32],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"]}, {
+        "name": "flash_attention_tc", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+        "launches": served["launches"], "max_abs_err": fa_err[torch.bfloat16],
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"]}]

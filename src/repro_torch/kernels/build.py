@@ -23,7 +23,7 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_newton", "gauss_jordan", "gc_array_step",
-           "flash_attention")
+           "flash_attention", "flash_attention_tc")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

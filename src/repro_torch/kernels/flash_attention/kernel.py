@@ -1,5 +1,5 @@
-"""Causal GQA flash-attention forward as one CUDA kernel
-(`csrc/flash_attention.cu`), and its plain PyTorch version.
+"""Causal GQA flash-attention forward as two CUDA kernels, one per dtype,
+and its plain PyTorch version.
 
 Replaces the Pallas kernel `repro.kernels.flash_attention.kernel`
 (`flash_attention_fwd`, body `_kernel`): online softmax over key tiles
@@ -10,14 +10,23 @@ PV product, as the model's blocked flash attention does
 Keys at or beyond `kv_len`, and after the query where `causal`, are
 masked to -1e30; nothing is padded.
 
-`flash_attention_fwd` launches the kernel for CUDA tensors and raises if
-the build or the launch fails; CPU tensors take `flash_attention_plain`,
-the blocked pure-torch attention of `repro/models/attention.py:75-165`
-(chunks of `chunk_q` queries and `chunk_kv` keys, the same float32 online
-softmax and the same rounding of p). Both refresh the running max once
-per chunk of `chunk_kv` keys, the kernel by a first pass over the chunk's
-tiles for its max, so both round p against the same max; they differ
-only in the order of float32 sums.
+Which kernel serves which dtype (`route` decides, from q's dtype):
+- bfloat16: `csrc/flash_attention_tc.cu`, on the tensor cores (mma.sync
+  bf16 with float32 sums, cp.async K/V staging), launched by
+  `flash_attention_tc`, counted in `flash_attention_tc.launches`;
+- float32: `csrc/flash_attention.cu`, on the float32 CUDA cores (TF32
+  would break the reference's float32 contract), launched by
+  `flash_attention_f32`, counted in `flash_attention_f32.launches`.
+
+`flash_attention_fwd` launches one of them for CUDA tensors and raises if
+the arguments, the build or the launch fail; CPU tensors take
+`flash_attention_plain`, the blocked pure-torch attention of
+`repro/models/attention.py:75-165` (chunks of `chunk_q` queries and
+`chunk_kv` keys, the same float32 online softmax and the same rounding of
+p). All three refresh the running max once per chunk of `chunk_kv` keys,
+the kernels by a first pass over the chunk's tiles for its max, so they
+round p against the same max; they differ only in the order of float32
+sums.
 """
 from __future__ import annotations
 
@@ -29,20 +38,26 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)    # csrc launch_typed
-MAX_GROUP = 128                  # query heads per kv head (csrc MAX_ROWS)
+HEAD_DIMS = (16, 32, 64, 128)    # both sources' launch switches
+MAX_GROUP = 128                  # query heads per kv head (f32 MAX_ROWS)
+ALIGN = 16                       # bytes; the tc kernel's cp.async rows
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = [_INT] * 11 + [_PTR] * 5
-        lib.flash_attention_launch.restype = _INT
-        lib.flash_attention_error.argtypes = [_INT]
-        lib.flash_attention_error.restype = ctypes.c_char_p
+def _lib(name: str):
+    """The loaded library of `csrc/<name>.cu` with its C signatures set:
+    `<name>_launch(B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, chunk,
+    q, k, v, o, stream)` and `<name>_error(code)`."""
+    lib = build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if launch.argtypes is None:
+        launch.argtypes = [_INT] * 10 + [_PTR] * 5
+        launch.restype = _INT
+        error = getattr(lib, f"{name}_error")
+        error.argtypes = [_INT]
+        error.restype = ctypes.c_char_p
     return lib
 
 
@@ -96,19 +111,47 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
-                        kv_len=None, chunk_q=512, chunk_kv=1024):
-    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd), contiguous, all float32 or
-    all bfloat16 -> (B, Sq, H, hd). The one place that chooses between the
-    kernel and the plain version: CPU tensors run `flash_attention_plain`
-    (with `window`, `chunk_q` and `chunk_kv`), CUDA tensors launch the
-    kernel, which picks its own tiles, refreshes the running max once per
-    `chunk_kv` keys and takes no window. Counts each kernel launch in
-    `flash_attention_fwd.launches`."""
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, kv_len=kv_len,
-                                     chunk_q=chunk_q, chunk_kv=chunk_kv)
+def _launch(name: str, q, k, v, args):
+    lib = _lib(name)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"{name}_launch")(
+            *args, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + getattr(lib, f"{name}_error")(rc).decode())
+    return out
+
+
+def flash_attention_tc(q, k, v, args):
+    """Launch `csrc/flash_attention_tc.cu` on bf16 CUDA tensors checked by
+    `route`, with its int arguments `args`; counts the launch."""
+    out = _launch("flash_attention_tc", q, k, v, args)
+    flash_attention_tc.launches += 1
+    return out
+
+
+def flash_attention_f32(q, k, v, args):
+    """Launch `csrc/flash_attention.cu` on float32 CUDA tensors checked by
+    `route`, with its int arguments `args`; counts the launch."""
+    out = _launch("flash_attention", q, k, v, args)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_tc.launches = 0
+flash_attention_f32.launches = 0
+
+
+def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
+          chunk_kv=1024):
+    """The kernel wrapper that serves q's dtype (`flash_attention_tc` for
+    bfloat16, `flash_attention_f32` for float32) and its int arguments
+    (B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, chunk), after the
+    checks both kernels need; raises on what neither takes. Does not look
+    at the device, so that it runs on CPU tensors too."""
     if window:
         raise NotImplementedError(
             "sliding-window flash attention on the card is not ported to "
@@ -143,19 +186,31 @@ def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    lib = _lib()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
-            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, K, hd,
-            int(q_offset), kv_len, int(bool(causal)), int(chunk_kv),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.flash_attention_error(rc).decode())
-    flash_attention_fwd.launches += 1
-    return out
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % ALIGN for x in (q, k, v)):
+        raise ValueError(f"flash_attention_tc kernel takes q, k, v aligned "
+                         f"to {ALIGN} bytes")
+    # one chunk of Skv keys is the same as any longer one, and fits an int
+    args = (B, Sq, Skv, H, K, hd, int(q_offset), kv_len, int(bool(causal)),
+            min(int(chunk_kv), Skv))
+    kern = (flash_attention_tc if q.dtype == torch.bfloat16
+            else flash_attention_f32)
+    return kern, args
 
 
-flash_attention_fwd.launches = 0
+def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
+                        kv_len=None, chunk_q=512, chunk_kv=1024):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd), contiguous, all float32 or
+    all bfloat16 -> (B, Sq, H, hd). The one place that chooses between the
+    kernels and the plain version: CPU tensors run `flash_attention_plain`
+    (with `window`, `chunk_q` and `chunk_kv`), CUDA tensors launch the
+    kernel `route` picks for their dtype, which picks its own tiles,
+    refreshes the running max once per `chunk_kv` keys and takes no
+    window."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     chunk_q=chunk_q, chunk_kv=chunk_kv)
+    kern, args = route(q, k, v, q_offset, causal=causal, window=window,
+                       kv_len=kv_len, chunk_kv=chunk_kv)
+    return kern(q, k, v, args)

@@ -1,14 +1,15 @@
 """Public entry of the flash-attention kernel (port of
 `repro.kernels.flash_attention.ops`).
 
-A CUDA tensor launches `csrc/flash_attention.cu` through
-`kernel.flash_attention_fwd` (or raises); a CPU tensor runs the plain
-blocked version `kernel.flash_attention_plain` with chunks of `bq`
-queries and `bkv` keys. The reference pads Sq and Skv to its blocks and
+A CUDA tensor launches, through `kernel.flash_attention_fwd`, the
+tensor-core kernel `csrc/flash_attention_tc.cu` when it is bfloat16 and
+`csrc/flash_attention.cu` when it is float32 (or raises); a CPU tensor
+runs the plain blocked version `kernel.flash_attention_plain` with chunks
+of `bq` queries and `bkv` keys. The reference pads Sq and Skv to its blocks and
 leaves padded keys unmasked when q_offset + Sq > Skv; the port pads
-nothing and masks by bounds and by `kv_len`. The kernel picks its own
-tiles, so `bq` shapes only the plain version; both refresh the running
-softmax max once per `bkv` keys. The kernel takes no `window` (a CUDA
+nothing and masks by bounds and by `kv_len`. The kernels pick their own
+tiles, so `bq` shapes only the plain version; all refresh the running
+softmax max once per `bkv` keys. The kernels take no `window` (a CUDA
 call with one raises NotImplementedError).
 """
 from __future__ import annotations

@@ -52,16 +52,21 @@ def _t(a, dtype=torch.float32):
     return torch.tensor(np.asarray(a, np.float32), dtype=dtype)
 
 
+def _launches():
+    return (kernel.flash_attention_tc.launches,
+            kernel.flash_attention_f32.launches)
+
+
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,off", KERNEL_SHAPES)
 def test_plain_matches_pallas_kernel(B, Sq, Skv, H, K, hd, causal, off):
     q, k, v = _qkv(Sq + Skv, B, Sq, Skv, H, K, hd)
     want = ref_fa_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                       jnp.asarray(v), off, bq=32, bkv=32,
                                       causal=causal)
-    before = kernel.flash_attention_fwd.launches
+    before = _launches()
     got = ops.flash_attention(_t(q), _t(k), _t(v), off, bq=32, bkv=32,
                               causal=causal)
-    assert kernel.flash_attention_fwd.launches == before   # CPU: no launch
+    assert _launches() == before   # CPU: no launch
     assert got.shape == (B, Sq, H, hd) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_KERNEL_F32)
@@ -136,8 +141,85 @@ def test_kv_len_masks_what_the_reference_wrapper_pads():
 
 def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
     q, k, v = (_t(a) for a in _qkv(5, 1, 20, 20, 4, 2, 16))
-    before = kernel.flash_attention_fwd.launches
+    before = _launches()
     got = kernel.flash_attention_fwd(q, k, v, kv_len=15)
-    assert kernel.flash_attention_fwd.launches == before
+    assert _launches() == before
     want = kernel.flash_attention_plain(q, k, v, kv_len=15)
     assert torch.equal(got, want)
+
+
+# -- the wrapper's checks and dtype routing (`kernel.route`), which decide
+# on CPU tensors as they do on CUDA ones, without launching anything
+
+@pytest.mark.parametrize("dtype,kern", [
+    (torch.bfloat16, "flash_attention_tc"),
+    (torch.float32, "flash_attention_f32")])
+def test_route_picks_the_kernel_by_dtype(dtype, kern):
+    q = torch.zeros((2, 12, 8, 64), dtype=dtype)
+    k = torch.zeros((2, 20, 2, 64), dtype=dtype)
+    got, args = kernel.route(q, k, k, 8, kv_len=17, chunk_kv=16)
+    assert got is getattr(kernel, kern)
+    assert args == (2, 12, 20, 8, 2, 64, 8, 17, 1, 16)
+    # kv_len defaults to Skv; a chunk longer than Skv is one chunk of Skv
+    _, args = kernel.route(q, k, k, causal=False)
+    assert args == (2, 12, 20, 8, 2, 64, 0, 20, 0, 20)
+
+
+def _misaligned_bf16(shape):
+    """A contiguous bf16 view that starts 2 bytes into its storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shape)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("float64", TypeError, "float32 or bfloat16"),
+    ("mixed dtypes", TypeError, "one dtype"),
+    ("head_dim 48", ValueError, "head_dim"),
+    ("kv_len > Skv", ValueError, "kv_len"),
+    ("chunk_kv 0", ValueError, "chunk_kv"),
+    ("non-contiguous", ValueError, "contiguous"),
+    ("window", NotImplementedError, "sliding-window"),
+    ("G > 128", ValueError, "heads per kv head"),
+    ("misaligned bf16", ValueError, "aligned"),
+])
+def test_route_rejects_what_the_kernels_do_not_take(case, error, match):
+    q = torch.zeros((1, 8, 4, 64))
+    k = torch.zeros((1, 8, 2, 64))
+    v, kw = k, {}
+    if case == "float64":
+        q, k, v = q.double(), k.double(), k.double()
+    elif case == "mixed dtypes":
+        q = q.bfloat16()
+    elif case == "head_dim 48":
+        q, k, v = (x[..., :48].contiguous() for x in (q, k, k))
+    elif case == "kv_len > Skv":
+        kw = {"kv_len": 9}
+    elif case == "chunk_kv 0":
+        kw = {"chunk_kv": 0}
+    elif case == "non-contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "window":
+        kw = {"window": 4}
+    elif case == "G > 128":
+        q = torch.zeros((1, 8, 129, 64))
+        k = v = torch.zeros((1, 8, 1, 64))
+    elif case == "misaligned bf16":
+        q = _misaligned_bf16((1, 8, 4, 64))
+        k = v = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(error, match=match):
+        kernel.route(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 6])
+def test_cpu_tensors_take_the_plain_version(dtype, window):
+    """On CPU tensors flash_attention_fwd is flash_attention_plain, bit for
+    bit, for either dtype, with a window, and launches nothing."""
+    q, k, v = (_t(a, dtype) for a in _qkv(13, 2, 24, 24, 8, 2, 32))
+    before = _launches()
+    got = kernel.flash_attention_fwd(q, k, v, window=window, chunk_q=8,
+                                     chunk_kv=16)
+    assert _launches() == before
+    want = kernel.flash_attention_plain(q, k, v, window=window, chunk_q=8,
+                                        chunk_kv=16)
+    assert got.dtype == dtype and torch.equal(got, want)

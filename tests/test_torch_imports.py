@@ -45,7 +45,7 @@ def test_port_has_modules():
                  "launch/serve.py"):
         assert need in names
     for src in ("fused_newton", "gauss_jordan", "gc_array_step",
-                "flash_attention"):
+                "flash_attention", "flash_attention_tc"):
         assert (PORT / "csrc" / f"{src}.cu").exists()
 
 

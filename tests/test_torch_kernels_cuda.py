@@ -206,7 +206,8 @@ def test_retention_on_the_card_matches_cpu(cuda, name):
         retention.retention_vs_vt(cell, tech, vts, device="cpu"), rtol=2e-6)
 
 
-# -- flash attention (csrc/flash_attention.cu) -------------------------------
+# -- flash attention (csrc/flash_attention_tc.cu for bf16, -----------------
+# csrc/flash_attention.cu for float32)
 
 # (B, Sq, Skv, H, K, hd, q_offset, kv_len): the serving path's prefill
 # shapes (two prompts of one length per admission group), B = 4 at S = 512
@@ -228,6 +229,20 @@ FLASH_SHAPES = [(2, 128, 128, 32, 8, 64, 0, None),
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
+def _flash_counts():
+    from repro_torch.kernels.flash_attention import kernel
+    return {torch.bfloat16: kernel.flash_attention_tc.launches,
+            torch.float32: kernel.flash_attention_f32.launches}
+
+
+def _one_launch_of(dtype, before):
+    """The kernel that serves `dtype` was launched once since `before`,
+    the other not at all."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    now = _flash_counts()
+    return now[dtype] == before[dtype] + 1 and now[other] == before[other]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 def test_flash_attention_matches_plain(cuda, shape, dtype):
@@ -238,9 +253,9 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=cuda)
                for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
-    before = flash_attention_fwd.launches
+    before = _flash_counts()
     got = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
-    assert flash_attention_fwd.launches == before + 1
+    assert _one_launch_of(dtype, before)
     want = flash_attention_plain(q, k, v, q_offset=off, kv_len=kv_len)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.isfinite(got).all()
@@ -252,18 +267,41 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("chunk_kv", [32, 40, 1024])
 def test_flash_attention_follows_chunk_kv(cuda, chunk_kv, dtype):
     """The running max is refreshed once per chunk_kv keys, as in the plain
-    version, also where a chunk ends inside a 32-key tile."""
+    version, also where a chunk ends inside a key tile (32 keys in the
+    float32 kernel, 64 in the bf16 tensor-core kernel)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
     rng = np.random.default_rng(chunk_kv)
     q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                device=cuda)
                for s in ((1, 300, 8, 64), (1, 300, 2, 64), (1, 300, 2, 64)))
+    before = _flash_counts()
     got = flash_attention_fwd(q, k, v, kv_len=250, chunk_kv=chunk_kv)
+    assert _one_launch_of(dtype, before)
     want = flash_attention_plain(q, k, v, kv_len=250, chunk_kv=chunk_kv)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= \
         FLASH_ATOL[dtype]
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 1024, 32, 8, 64, 0, None),
+                                   (2, 200, 200, 14, 2, 64, 0, None),
+                                   (1, 96, 128, 8, 2, 32, 0, 77)], ids=str)
+def test_flash_attention_tc_is_deterministic(cuda, shape):
+    """Two launches of the bf16 tensor-core kernel on the same inputs give
+    the same bits: no atomics, a fixed order of sums."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    B, Sq, Skv, H, K, hd, off, kv_len = shape
+    rng = np.random.default_rng(Sq + H)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                               device=cuda)
+               for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    before = _flash_counts()
+    first = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
+    second = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _flash_counts()[torch.bfloat16] == before[torch.bfloat16] + 2
+    assert torch.equal(first, second)
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
@@ -288,12 +326,13 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
 
 def test_serving_on_the_card(cuda):
     """A reduced llama3.2-1b at float32 served on the card: every prefill
-    attention launches the kernel, device and host modes give the same
-    greedy streams, and they equal the CPU run with the same weights."""
+    attention launches the float32 kernel, device and host modes give the
+    same greedy streams, and they equal the CPU run with the same
+    weights."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_f32
     from repro_torch.models.model import Model
     from repro_torch.serving import Request, ServeEngine
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
@@ -309,9 +348,9 @@ def test_serving_on_the_card(cuda):
                           decode_chunk=4)
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
-        before = flash_attention_fwd.launches
+        before = flash_attention_f32.launches
         done, _ = eng.run()
-        launches = flash_attention_fwd.launches - before
+        launches = flash_attention_f32.launches - before
         assert launches == (cfg.n_layers * eng.admit_syncs
                             if model is card else 0)
         streams.append({r.rid: r.out_tokens for r in done})

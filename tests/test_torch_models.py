@@ -154,9 +154,11 @@ def test_model_prefill_and_decode_steps(pair):
     W = 24
     logits_ref, cache_ref, pos_ref = ref_model.prefill(
         params, {"tokens": jnp.asarray(toks)}, W=W)
-    before = kernel.flash_attention_fwd.launches
+    before = (kernel.flash_attention_tc.launches,
+              kernel.flash_attention_f32.launches)
     logits, cache, pos = model.prefill({"tokens": torch.tensor(toks)}, W=W)
-    assert kernel.flash_attention_fwd.launches == before   # CPU: no launch
+    assert (kernel.flash_attention_tc.launches,
+            kernel.flash_attention_f32.launches) == before   # CPU: no launch
     assert logits.dtype == torch.float32 and logits.shape == (3,
                                                               cfg.vocab_size)
     _close(logits, logits_ref)

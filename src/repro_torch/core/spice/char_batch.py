@@ -17,7 +17,7 @@ topology:
      fused Woodbury-Newton engine: the constant Jacobian part is
      inverted once per run and each Newton iteration applies a rank
      3*n_dev correction from the analytic device stamps; on the card
-     each time step is one launch of the CUDA kernel
+     the whole run is one launch of the CUDA scan kernel
      (`kernels/batched_solve/fused.py`);
   4. extract the sense-swing threshold crossing vectorized on the device
      (`transient.crossing_time`), interpolated between bracketing steps.

@@ -11,9 +11,9 @@ Two engines, as in the reference:
     one launch of `csrc/gauss_jordan.cu` per iteration);
   * the fused Woodbury-Newton engine behind `run_lattice(solver="pallas")`:
     everything constant over the run (h is fixed per point, so the
-    linear Jacobian part never changes) is precomputed, then one
-    `ops.fused_newton_step` per step; on CUDA tensors that step is the
-    kernel of `kernels/batched_solve/fused.py`.
+    linear Jacobian part never changes) is precomputed, then
+    `ops.fused_newton_scan` runs every step; on CUDA tensors that is one
+    launch of the kernel of `kernels/batched_solve/fused.py` per run.
 
 The reference's early-exit Newton loop (a `while_loop` under vmap, which
 freezes converged lanes) becomes a fixed-length loop with a per-lane
@@ -368,7 +368,7 @@ class Transient:
     def _run_lattice_fused(self, te, wt, wv, n_steps, v0, G_b, C_b,
                            dev_over):
         spec = self.spec
-        sdt, cdt = spec.dtypes
+        sdt, _ = spec.dtypes
         B, n = te.shape[0], spec.n
         h = te / n_steps
         pre = nwt.precompute(spec, G_b, C_b, h)
@@ -380,11 +380,5 @@ class Transient:
         Ksrc = Ksrc.contiguous()
         params = pack_params(self.system.dev, B, sdt, dev_over)
         v = v0.to(sdt).expand(B, n).contiguous()
-        vs = torch.empty((B, n_steps, n), dtype=sdt, device=te.device)
-        for step in range(n_steps):
-            Krhs = torch.einsum("bij,bj->bi", pre["KCoh"], v.to(cdt)) \
-                + Ksrc[step]
-            v = solve_ops.fused_newton_step(spec, pre, Krhs, params, v,
-                                            iters=self.iters, tol=self.tol)
-            vs[:, step] = v
-        return vs
+        return solve_ops.fused_newton_scan(spec, pre, Ksrc, params, v,
+                                           iters=self.iters, tol=self.tol)

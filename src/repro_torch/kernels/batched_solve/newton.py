@@ -28,7 +28,7 @@ outer products per device.
 The same iteration runs three ways: under an early-exit loop
 (`newton_solve`, the CPU path), under a fixed-length loop
 (`newton_solve_fixed`), and inside the CUDA kernel
-(`csrc/fused_newton.cu`, one thread per lane). Per-lane freeze (`done`
+(`csrc/fused_newton.cu`, one warp per lane). Per-lane freeze (`done`
 mask) makes the first two identical bit for bit: a converged lane stops
 changing, so an early-exited loop and a run-to-the-cap loop agree.
 """

@@ -1,11 +1,15 @@
 """Public entry of the batched MNA solvers.
 
-`fused_newton_step`: the fused Woodbury-Newton engine's whole-timestep
-solve (newton.py / fused.py). A CUDA tensor launches the hand-written
-kernel (or raises); a CPU tensor runs the plain early-exit
-`newton.newton_solve`, whose result is identical to the fixed-length
-loop the kernel runs. Forward only: the implicit-function backward of the
-reference (`fixed_point_adjoint`) comes with differentiable DSE.
+`fused_newton_scan`: the fused Woodbury-Newton engine's whole transient
+(newton.py / fused.py), every step's rhs hoist and Newton solve; a CUDA
+tensor launches the hand-written kernel once (or raises), a CPU tensor
+runs the plain step loop (`fused.fused_newton_scan_plain`).
+`fused_newton_step`: one timestep's solve; a CUDA tensor launches the
+same kernel for one step (or raises); a CPU tensor runs the plain
+early-exit `newton.newton_solve`, whose result is identical to the
+fixed-length loop the kernel runs. Forward only: the implicit-function
+backward of the reference (`fixed_point_adjoint`) comes with
+differentiable DSE.
 
 Dense Gauss-Jordan (`solve`, `solve1`, `batched_solve`): float32
 per-iteration dense solves of the scalar transient stepper
@@ -16,7 +20,8 @@ CPU tensor runs its plain twin (`kernel.gauss_jordan_plain`).
 from __future__ import annotations
 
 from repro_torch.kernels.batched_solve import newton as _newton
-from repro_torch.kernels.batched_solve.fused import fused_newton
+from repro_torch.kernels.batched_solve.fused import (  # noqa: F401
+    fused_newton, fused_newton_scan)
 from repro_torch.kernels.batched_solve.kernel import batched_solve
 
 

@@ -13,7 +13,9 @@ from repro_torch.core.bank import BankConfig, build_bank
 from repro_torch.core.spice.mna import G_BIG, Circuit
 from repro_torch.core.techfile import SYN40
 from repro_torch.kernels.batched_solve import newton as nwt
-from repro_torch.kernels.batched_solve.fused import fused_newton
+from repro_torch.kernels.batched_solve.fused import (fused_newton,
+                                                     fused_newton_scan,
+                                                     fused_newton_scan_plain)
 from repro_torch.kernels.batched_solve.sparse import pack_params
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +92,79 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                .transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
         fused_newton(spec, bad, Krhs, params, v0, iters=6, tol=1e-6)
+
+
+# -- the scan: a whole transient in one launch (csrc/fused_newton.cu) --------
+
+# kernel vs plain over a whole trajectory (volts): per step the Newton
+# solve agrees as in the one-step test, and the in-kernel KCoh @ v sum may
+# differ from the einsum's order by an ulp; the circuit is stable, so such
+# differences do not grow past round-off. mixed and f32 store the state in
+# float32 (spacing ~1e-7 V near 1 V), where one flipped rounding moves a
+# node by an ulp; f32 also solves in float32 through cond(J) ~ 1e6
+SCAN_ATOL = {"f64": 1e-9, "mixed": 1e-5, "f32": 1e-3}
+SCAN_STEPS = 20
+
+
+def _scan_operands(system, precision, B, device, T=SCAN_STEPS, seed=0):
+    """`_operands` plus a T-step source term K @ src: Norton injections
+    at the source nodes, seeded levels that ramp in over four steps."""
+    spec, pre, _, params, v0 = _operands(system, precision, B, device, seed)
+    _, cdt = spec.dtypes
+    rng = np.random.default_rng(seed + 1)
+    levels = torch.as_tensor(
+        G_BIG * rng.uniform(0, 1.1, (B, len(system.src_node))), dtype=cdt,
+        device=device)
+    src = torch.zeros((T, B, system.n), dtype=cdt, device=device)
+    for t in range(T):
+        src[t][:, system.src_node] = levels * min(1.0, t / 4)
+    Ksrc = torch.einsum("bij,tbj->tbi", pre["K"], src).contiguous()
+    return spec, pre, Ksrc, params, v0
+
+
+@pytest.mark.parametrize("precision", list(SCAN_ATOL))
+@pytest.mark.parametrize("cell", ["gc2t_nn", "gc2t_np", "one_device"])
+def test_scan_kernel_matches_plain(cuda, cell, precision):
+    if cell == "one_device":
+        system = _one_device_system(cuda)
+    else:
+        ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 64, cell)))
+        system = ckt.build(device=cuda)
+    for B in (1, 16, 1000):
+        spec, pre, Ksrc, params, v0 = _scan_operands(system, precision, B,
+                                                     cuda)
+        before = fused_newton_scan.launches
+        got = fused_newton_scan(spec, pre, Ksrc, params, v0, iters=6,
+                                tol=1e-6)
+        assert fused_newton_scan.launches == before + 1
+        want = fused_newton_scan_plain(spec, pre, Ksrc, params, v0, 6, 1e-6)
+        torch.cuda.synchronize()
+        assert got.shape == (B, SCAN_STEPS, system.n)
+        assert got.dtype == v0.dtype and torch.isfinite(got).all()
+        err = float((got.double() - want.double()).abs().max())
+        assert err <= SCAN_ATOL[precision], (B, err)
+
+
+def test_scan_kernel_rejects_what_it_does_not_take(cuda):
+    ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 64, "gc2t_nn")))
+    spec, pre, Ksrc, params, v0 = _scan_operands(ckt.build(device=cuda),
+                                                 "f64", 4, cuda)
+    before = fused_newton_scan.launches
+    with pytest.raises(TypeError):
+        fused_newton_scan(spec, pre, Ksrc.float(), params, v0, iters=6,
+                          tol=1e-6)
+    with pytest.raises(ValueError):
+        fused_newton_scan(spec, pre, Ksrc[:, :, :-1].contiguous(), params,
+                          v0, iters=6, tol=1e-6)
+    with pytest.raises(ValueError):
+        fused_newton_scan(spec, pre, Ksrc[0], params, v0, iters=6, tol=1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_newton_scan(spec, pre, Ksrc.transpose(0, 1).contiguous()
+                          .transpose(0, 1), params, v0, iters=6, tol=1e-6)
+    bad = dict(pre, KCoh=pre["KCoh"].transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_newton_scan(spec, bad, Ksrc, params, v0, iters=6, tol=1e-6)
+    assert fused_newton_scan.launches == before
 
 
 # -- Gauss-Jordan solve (csrc/gauss_jordan.cu) -------------------------------

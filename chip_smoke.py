@@ -10,9 +10,16 @@ Phases:
      the paths' shapes and at a large batch, at every precision: the fused
      Newton scan over a real topology group's whole 300-step transient and
      over 4,099 tiled lanes (a 40-step window), the one-step entry on one
-     step (flash attention at the serving path's prefill shapes and at
-     ragged, offset, kv_len < Skv, G = 1 and G = 7 shapes: bfloat16
-     through the tensor-core kernel, float32 through the float32 kernel);
+     step; Gauss-Jordan at B = 1, 64 and 4096 for N = 13 (the path's read
+     column) and 32 (warp kernel) and N = 33 (block kernel), and at
+     N = 130 in float32 and float64, each case checking which kernel
+     launched; the array step at 128x128, 512x512, 64x130 (three
+     block_c) and 64x2200, printing each launch's geometry (a thread-block
+     cluster per column block, or none at 64x2200), each launched twice
+     and held to the same bits; flash attention at the serving path's
+     prefill shapes and at ragged, offset, kv_len < Skv, G = 1 and G = 7
+     shapes (bfloat16 through the tensor-core kernel, float32 through the
+     float32 kernel);
   4. drive the lattice path, `characterize` over the default 96-point
      design lattice, with the launch counters set to 0 just before it;
      check that each topology group's transient was one launch of the
@@ -22,7 +29,7 @@ Phases:
   6. drive the compile path, `compile_bank(simulate=True, solver="pallas")`
      for gc2t_nn/np/osos at 16x64 and 128x128 plus one sram6t bank, each
      with the counters set to 0 just before it; check that every Newton
-     iteration went through the Gauss-Jordan kernel, that t_cell matches
+     iteration went through the Gauss-Jordan warp kernel, that t_cell matches
      the port's CPU run and the card's "jnp" run, that "jnp" hits the
      16x64 anchors, and that the retention computed on the card matches
      the CPU run; then the 64-lane `run_batch` vt0 sweep, counted and held
@@ -45,14 +52,17 @@ Phases:
      flash-attention kernel;
   9. time the fused Newton scan kernel (per launch and per step, by CUDA
      events and the profiler's device time), its plain version, its bound
-     and its dependent chain, and the one-step entry; the Gauss-Jordan,
-     array-step and both flash-attention kernels
-     (CUDA events and the profiler's device time; the tensor-core kernel
-     at the serve's four prefill shapes, the float32 kernel at the float32
-     serve's two), their plain versions, their bounds and the library
-     calls (`torch.linalg.solve_ex` and `torch.linalg.solve`;
-     `scaled_dot_product_attention` in the same call), and the warm
-     compile and `run_batch` walls;
+     and its dependent chain, and the one-step entry; the Gauss-Jordan
+     kernels (warp kernel at B = 1 and 4096, N = 13, with its dependent
+     chain and the wrapper's host time per call; block kernel at B = 16,
+     N = 130), the array step at 128x128 and 512x512 (with its SFU
+     floor), the array path's warm 200-step write, and both
+     flash-attention kernels (CUDA events and the profiler's device time;
+     the tensor-core kernel at the serve's four prefill shapes, the
+     float32 kernel at the float32 serve's two), their plain versions,
+     their bounds and the library calls (`torch.linalg.solve_ex` and
+     `torch.linalg.solve`; `scaled_dot_product_attention` in the same
+     call), and the warm compile and `run_batch` walls;
  10. print a {"kernels": [...]} JSON line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 
@@ -125,6 +135,11 @@ TRACE_ATOL_PALLAS = 1e-6    # volts, tests/test_torch_dense_transient.py
 GJ_RTOL = 1e-6
 GJ_ORACLE_TOL = 2e-5        # against torch.linalg.solve, as the reference
 GJ_BIG_BATCH = 4096
+# checked batches and sizes: 1 is the compile's, 64 run_batch's; N = 13
+# is the path's read column (warp kernel), 32 the widest warp system, 33
+# the narrowest block system (and N = 130 below, B = 16)
+GJ_BATCHES = (1, 64, GJ_BIG_BATCH)
+GJ_SIZES = (13, 32, 33)
 # array step vs its plain version, one step (volts): the same float32
 # arithmetic, but sequential column sums and the card's expf/log1pf; the
 # rail's difference quotient over dv = 1e-4 magnifies sum-order round-off
@@ -132,11 +147,19 @@ GJ_BIG_BATCH = 4096
 # tests/test_torch_gc_array_step.py)
 GC_ATOL_SN, GC_ATOL_BL = 2e-6, 2e-4
 GC_ATOL_ORACLE = 1e-3       # vs the oracle (rail dv 1e-3), the reference's
-# (R, C, block_c): block_c None is the default, 32 columns per block (any
-# block_c >= 32 launches the same); C = 130 is not a multiple of it, and
-# block_c = 16 gives blocks of 16 columns
+# (R, C, block_c): block_c None is the default (128; at most 8 columns
+# per block, so any block_c >= 8 launches the same). At 132 SMs 128x128,
+# 512x512 and 64x130 split each column's rows over a thread-block
+# cluster; 64x2200 fills the card with column blocks alone (no cluster);
+# C = 130 and 2200 are not multiples of the block; block_c = 1 gives
+# blocks of one column. Each case launches twice and the two outputs must
+# be bit-identical
 GC_CHECKS = ((128, 128, None), (512, 512, None), (64, 130, None),
-             (64, 130, 16))
+             (64, 130, 16), (64, 130, 1), (64, 2200, None))
+# SFU results per clock and SM (sm_90), for the array step's floor of
+# 64 transcendental calls (32 expf, 32 log1pf) per cell
+SFU_PER_CLK_SM = 16
+GC_TRANSCENDENTALS = 64
 # retention (float32) on the card vs the CPU run, relative: the CPU parity
 # test's limit against the reference (tests/test_torch_compiler.py)
 RET_RTOL = 2e-6
@@ -376,45 +399,61 @@ def read_column_systems(dev, B: int, seed: int = SEED):
     return J.contiguous(), r.contiguous()
 
 
-def check_gauss_jordan(dev) -> float:
-    """Gauss-Jordan kernel against its plain version (and the LU oracle)
-    on the card: the path's shape, a large batch, N = 130 in float32 and
-    float64. Returns the largest |x_kernel - x_plain|; raises on a
-    failed check."""
+def dd_systems(dev, B: int, N: int, dtype=torch.float64, seed: int = SEED):
+    """B diagonally dominant systems of size N, seeded."""
+    rng = np.random.default_rng(seed + N)
+    A = rng.standard_normal((B, N, N)) * 0.1
+    A += np.eye(N)[None] * (np.abs(A).sum(-1).max() + 1.0)
+    return (torch.as_tensor(A, dtype=dtype, device=dev),
+            torch.as_tensor(rng.standard_normal((B, N)), dtype=dtype,
+                            device=dev))
+
+
+def check_gauss_jordan(dev) -> dict:
+    """Gauss-Jordan kernels against their plain version (and the LU oracle
+    at N = 130) on the card: B in GJ_BATCHES at N in GJ_SIZES (the path's
+    read-column systems at N = 13), and B = 16 at N = 130 in float32 and
+    float64; each case checks that `route` picked the kernel that
+    launched. Returns the largest |x_kernel - x_plain| by kernel ("warp",
+    "block"); raises on a failed check."""
     from repro_torch.kernels.batched_solve.kernel import (batched_solve,
-                                                          gauss_jordan_plain)
+                                                          gauss_jordan_plain,
+                                                          route)
     from repro_torch.kernels.batched_solve.ref import batched_solve_ref
-    rng = np.random.default_rng(SEED)
-    A = rng.standard_normal((16, 130, 130)) * 0.1
-    A += np.eye(130)[None] * (np.abs(A).sum(-1).max() + 1.0)
-    rhs = rng.standard_normal((16, 130))
-    cases = {"path B=1 N=13 f64": read_column_systems(dev, 1),
-             f"B={GJ_BIG_BATCH} N=13 f64":
-                 read_column_systems(dev, GJ_BIG_BATCH)}
+    cases = {}
+    for N in GJ_SIZES:
+        for B in GJ_BATCHES:
+            cases[f"B={B} N={N} f64"] = (read_column_systems(dev, B)
+                                         if N == 13 else dd_systems(dev, B, N))
     for dt in (torch.float32, torch.float64):
-        cases[f"B=16 N=130 {str(dt)[6:]}"] = (
-            torch.as_tensor(A, dtype=dt, device=dev),
-            torch.as_tensor(rhs, dtype=dt, device=dev))
-    worst = 0.0
+        cases[f"B=16 N=130 {str(dt)[6:]}"] = dd_systems(dev, 16, 130, dt)
+    worst = {"warp": 0.0, "block": 0.0}
     for label, (J, r) in cases.items():
+        kind = route(r.shape[-1])
+        counts = (batched_solve.warp_launches, batched_solve.block_launches)
         got = batched_solve(J, r)
+        launched = (batched_solve.warp_launches - counts[0],
+                    batched_solve.block_launches - counts[1])
         want = gauss_jordan_plain(J, r)
         torch.cuda.synchronize()
         err = float((got.double() - want.double()).abs().max())
         scale = float(want.double().abs().max())
         ok = (got.dtype == r.dtype and bool(torch.isfinite(got).all())
-              and err <= GJ_RTOL * scale)
-        msg = (f"check gauss_jordan {label}: max|dx| vs plain {err!r} "
-               f"(limit {GJ_RTOL} x {scale!r})")
+              and err <= GJ_RTOL * scale
+              and launched == ((1, 0) if kind == "warp" else (0, 1)))
+        msg = (f"check gauss_jordan {label} ({kind} kernel, launches "
+               f"warp/block {launched}): max|dx| vs plain {err!r} (limit "
+               f"{GJ_RTOL} x {scale!r})")
         if r.shape[-1] == 130:
             oracle = float((got.double() - batched_solve_ref(
                 J.double(), r.double())).abs().max())
             ok = ok and oracle <= GJ_ORACLE_TOL
-            msg += f", vs torch.linalg.solve {oracle!r} (limit {GJ_ORACLE_TOL})"
+            msg += (f", vs torch.linalg.solve {oracle!r} (limit "
+                    f"{GJ_ORACLE_TOL})")
         log(f"{msg} {'ok' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"gauss_jordan check {label} failed")
-        worst = max(worst, err)
+        worst[kind] = max(worst[kind], err)
     return worst
 
 
@@ -431,8 +470,10 @@ def array_inputs(R: int, C: int, dev, seed: int = SEED):
 
 def check_gc_array_step(dev) -> float:
     """Array-step kernel against its plain version and the oracle on the
-    card at 128x128 (16 Kb), 512x512 (256 Kb) and C = 130 (`GC_CHECKS`).
-    Returns the largest |dv| against the plain version."""
+    card at 128x128 (16 Kb), 512x512 (256 Kb), C = 130 and C = 2200
+    (`GC_CHECKS`), printing each launch's geometry; a second launch must
+    give the same bits. Returns the largest |dv| against the plain
+    version."""
     from repro_torch.kernels.gc_array_step import ops
     from repro_torch.kernels.gc_array_step.kernel import step_plain
     p = ops.cell_params("gc2t_nn")
@@ -441,19 +482,24 @@ def check_gc_array_step(dev) -> float:
         args = array_inputs(R, C, dev)
         kw = {} if bc is None else {"block_c": bc}
         sn, bl = ops.gc_array_step(*args, 2e-11, p, **kw)
+        geom = ops.gc_array_step.last_geometry
+        sn2, bl2 = ops.gc_array_step(*args, 2e-11, p, **kw)
         p_sn, p_bl = step_plain(*args, 2e-11, p)
         o_sn, o_bl = ops.gc_array_step_ref(*args, 2e-11, p)
         torch.cuda.synchronize()
+        same = bool(torch.equal(sn, sn2) and torch.equal(bl, bl2))
         e_sn = float((sn - p_sn).abs().max())
         e_bl = float((bl - p_bl).abs().max())
         e_or = max(float((sn - o_sn).abs().max()),
                    float((bl - o_bl).abs().max()))
-        ok = (e_sn <= GC_ATOL_SN and e_bl <= GC_ATOL_BL
+        ok = (e_sn <= GC_ATOL_SN and e_bl <= GC_ATOL_BL and same
               and e_or <= GC_ATOL_ORACLE and bool(torch.isfinite(sn).all()))
-        log(f"check gc_array_step {R}x{C} block_c {bc or 'default'}: "
-            f"max|dv| vs plain SN "
-            f"{e_sn!r} V (limit {GC_ATOL_SN}), rail {e_bl!r} V (limit "
-            f"{GC_ATOL_BL}); vs oracle {e_or!r} V (limit {GC_ATOL_ORACLE}) "
+        log(f"check gc_array_step {R}x{C} block_c {bc or 'default'} "
+            f"({geom.cols} columns x {geom.row_groups} row groups per "
+            f"block, cluster {geom.cluster}, {geom.blocks} blocks): "
+            f"max|dv| vs plain SN {e_sn!r} V (limit {GC_ATOL_SN}), rail "
+            f"{e_bl!r} V (limit {GC_ATOL_BL}); vs oracle {e_or!r} V (limit "
+            f"{GC_ATOL_ORACLE}); two launches bit-identical {same} "
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"gc_array_step check {R}x{C} failed")
@@ -475,6 +521,8 @@ def compile_path(dev) -> dict:
         for ws, nw in COMPILE_SIZES:
             cfg = BankConfig(ws, nw, cell=cell)
             batched_solve.launches = 0
+            batched_solve.warp_launches = 0
+            batched_solve.block_launches = 0
             fused.fused_newton.launches = 0
             fused.fused_newton_scan.launches = 0
             t0 = time.perf_counter()
@@ -486,8 +534,11 @@ def compile_path(dev) -> dict:
             t = rep.t_cell_sim_s
             log(f"compile path: {cell} {ws}x{nw} pallas on the card in "
                 f"{wall:.2f} s (first call), gauss_jordan launches {n} "
-                f"(expected {per_compile}), t_cell_sim {t!r} s")
-            if n != per_compile or fused.fused_newton.launches != 0 \
+                f"(expected {per_compile}; warp kernel "
+                f"{batched_solve.warp_launches}, block kernel "
+                f"{batched_solve.block_launches}), t_cell_sim {t!r} s")
+            if n != per_compile or batched_solve.warp_launches != n \
+                    or fused.fused_newton.launches != 0 \
                     or fused.fused_newton_scan.launches != 0:
                 raise RuntimeError("compile path launch count")
             if not (t is not None and math.isfinite(t) and t > 0):
@@ -566,6 +617,7 @@ def batch_path() -> int:
     from repro_torch.kernels.batched_solve.kernel import batched_solve
     tr, waves, over = batch_sweep_inputs("cuda")
     batched_solve.launches = 0
+    batched_solve.warp_launches = 0
     t0 = time.perf_counter()
     out = tr.run_batch(waves, 1e-9, BATCH_STEPS, over)
     torch.cuda.synchronize()
@@ -575,10 +627,12 @@ def batch_path() -> int:
     ref = tr_cpu.run_batch(waves, 1e-9, BATCH_STEPS, over_cpu)
     err = float((out["all"].cpu() - ref["all"]).abs().max())
     ok = (n == BATCH_STEPS * NEWTON_ITERS and err <= TRACE_ATOL_PALLAS
+          and batched_solve.warp_launches == n
           and bool(torch.isfinite(out["all"]).all()))
     log(f"run_batch path: {BATCH_LANES} lanes x {BATCH_STEPS} steps pallas "
         f"on the card in {wall:.2f} s (first call), gauss_jordan launches "
-        f"{n} (expected {BATCH_STEPS * NEWTON_ITERS}); max|dv| vs CPU "
+        f"{n} (expected {BATCH_STEPS * NEWTON_ITERS}; warp kernel "
+        f"{batched_solve.warp_launches}); max|dv| vs CPU "
         f"{err!r} V (limit {TRACE_ATOL_PALLAS}) {'ok' if ok else 'FAILED'}")
     if not ok:
         raise RuntimeError("run_batch path")
@@ -617,8 +671,11 @@ def write_path() -> int:
     sel, parked = float(v_sn[3, 0]), float(v_sn[5].abs().max())
     ok = (n == WRITE_STEPS and 0.6 < sel < 1.0 and parked < 0.05
           and err <= WRITE_ATOL)
+    geom = ops.gc_array_step.last_geometry
     log(f"array path: {WRITE_STEPS}-step write of 512x512 on the card, "
-        f"gc_array_step launches {n}; selected SN {sel!r} V (0.6..1.0), "
+        f"gc_array_step launches {n} ({geom.cols} columns x "
+        f"{geom.row_groups} row groups per block, cluster {geom.cluster}, "
+        f"{geom.blocks} blocks); selected SN {sel!r} V (0.6..1.0), "
         f"parked row max {parked!r} V (< 0.05); max|dv| vs CPU plain "
         f"{err!r} V (limit {WRITE_ATOL}) {'ok' if ok else 'FAILED'}")
     if not ok:
@@ -626,53 +683,121 @@ def write_path() -> int:
     return n
 
 
-def time_new_kernels(dev, card) -> dict:
-    """Events, profiler device time, plain version, bound and library
-    call of the Gauss-Jordan and array-step kernels at the paths'
-    shapes, in turns (plain, kernel, kernel, plain)."""
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of `fn` over `calls` calls with no
+    synchronize inside: the wrapper's own cost while the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def time_gauss_jordan(dev, card, J, r, label, kernel_name, chain=None):
+    """Events, device time, plain version, solve_ex/solve and the
+    wrapper's host time of one Gauss-Jordan shape, in turns (plain,
+    kernel, kernel, plain)."""
     from repro_torch.kernels.batched_solve.kernel import (batched_solve,
                                                           gauss_jordan_plain)
+    B, N = r.shape
+    kern = lambda: batched_solve(J, r)
+    plain = lambda: gauss_jordan_plain(J, r)
+    # solve_ex: the library call the port's "jnp" stepper makes; it does
+    # not check for errors, so it does not wait on the device as
+    # torch.linalg.solve does
+    lib = lambda: torch.linalg.solve_ex(J, r[..., None])
+    lib_sync = lambda: torch.linalg.solve(J, r[..., None])
+    p1, k1 = time_ms(plain, 20), time_ms(kern, 500)
+    l1, s1 = time_ms(lib, 200), time_ms(lib_sync, 200)
+    k2, p2 = time_ms(kern, 500), time_ms(plain, 20)
+    l2 = time_ms(lib, 200)
+    wrap = host_us(kern)
+    d = device_ms(kern, kernel_name)
+    bound, by = bound_of(*gj_work(B, N, r.element_size()),
+                         PEAK_FLOPS[torch.float32])
+    out = dict(ms=(k1 + k2) / 2, device_ms=d, plain_ms=(p1 + p2) / 2,
+               library_ms=(l1 + l2) / 2, bound_ms=bound, bound_by=by,
+               host_us=wrap, chain_ms=chain)
+    log(f"time gauss_jordan {label}: kernel {k1!r} / {k2!r} ms, device "
+        f"{d!r} ms, wrapper host {wrap!r} us per call (1000 calls, no "
+        f"sync), plain {p1!r} / {p2!r} ms, torch.linalg.solve_ex {l1!r} / "
+        f"{l2!r} ms, torch.linalg.solve {s1!r} ms, bound {bound!r} ms "
+        f"({by}), dependent chain {chain!r} ms [{card}]")
+    return out
+
+
+def time_new_kernels(dev, card) -> dict:
+    """Events, profiler device time, plain version, bound, floor and
+    library call of the Gauss-Jordan and array-step kernels at the paths'
+    shapes, in turns (plain, kernel, kernel, plain). The Gauss-Jordan
+    dependent chain: N pivots at the time of one, the slope of a single
+    system's device time between N = 2 and N = 16 (the same warp kernel
+    of width 16). The array step's SFU floor: 64 transcendental calls
+    per cell at 16 results per clock and SM at the maximum SM clock."""
+    from repro_torch.kernels.batched_solve.kernel import batched_solve
     from repro_torch.kernels.gc_array_step import ops
     from repro_torch.kernels.gc_array_step.kernel import step_plain
     out = {}
+    d_n = {}
+    for n in (2, 16):
+        J, r = dd_systems(dev, 1, n)
+        d_n[n] = device_ms(lambda: batched_solve(J, r),
+                           "gauss_jordan_warp_kernel")
+    t_pivot = (d_n[16] - d_n[2]) / 14
+    log(f"time gauss_jordan warp kernel B=1 f64: device {d_n[2]!r} ms at "
+        f"N=2, {d_n[16]!r} ms at N=16: {t_pivot!r} ms per pivot [{card}]")
     for B in (1, GJ_BIG_BATCH):
         J, r = read_column_systems(dev, B)
-        kern = lambda: batched_solve(J, r)
-        plain = lambda: gauss_jordan_plain(J, r)
-        # solve_ex: the library call the port's "jnp" stepper makes; it
-        # does not check for errors, so it does not wait on the device as
-        # torch.linalg.solve does
-        lib = lambda: torch.linalg.solve_ex(J, r[..., None])
-        lib_sync = lambda: torch.linalg.solve(J, r[..., None])
-        p1, k1 = time_ms(plain, 20), time_ms(kern, 500)
-        l1, s1 = time_ms(lib, 200), time_ms(lib_sync, 200)
-        k2, p2 = time_ms(kern, 500), time_ms(plain, 20)
-        l2 = time_ms(lib, 200)
-        d = device_ms(kern, "gauss_jordan_kernel")
-        bound, by = bound_of(*gj_work(B, r.shape[-1], 8),
-                             PEAK_FLOPS[torch.float32])
-        out[f"gauss_jordan B={B}"] = dict(
-            ms=(k1 + k2) / 2, device_ms=d, plain_ms=(p1 + p2) / 2,
-            library_ms=(l1 + l2) / 2, bound_ms=bound, bound_by=by)
-        log(f"time gauss_jordan B={B} N=13 f64: kernel {k1!r} / {k2!r} ms, "
-            f"device {d!r} ms, plain {p1!r} / {p2!r} ms, "
-            f"torch.linalg.solve_ex {l1!r} / {l2!r} ms, torch.linalg.solve "
-            f"{s1!r} ms, bound {bound!r} ms ({by}) [{card}]")
+        out[f"gauss_jordan B={B}"] = time_gauss_jordan(
+            dev, card, J, r, f"B={B} N=13 f64 (warp kernel)",
+            "gauss_jordan_warp_kernel", chain=13 * t_pivot)
+    J, r = dd_systems(dev, 16, 130)
+    out["gauss_jordan block"] = time_gauss_jordan(
+        dev, card, J, r, "B=16 N=130 f64 (block kernel)",
+        "gauss_jordan_kernel")
     p = ops.cell_params("gc2t_nn")
+    sfu_rate = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * SFU_PER_CLK_SM * max_sm_clock_hz())
     for R in (128, 512):
         args = array_inputs(R, R, dev)
         kern = lambda: ops.gc_array_step(*args, 1e-11, p)
         plain = lambda: step_plain(*args, 1e-11, p)
         p1, k1 = time_ms(plain, 5), time_ms(kern, 20)
         k2, p2 = time_ms(kern, 20), time_ms(plain, 5)
+        geom = ops.gc_array_step.last_geometry
         d = device_ms(kern, "gc_array_step_kernel", reps=10)
         bound, by = bound_of(*gc_work(R, R), PEAK_FLOPS[torch.float32])
+        sfu = GC_TRANSCENDENTALS * R * R / sfu_rate * 1e3
         out[f"gc_array_step {R}x{R}"] = dict(
             ms=(k1 + k2) / 2, device_ms=d, plain_ms=(p1 + p2) / 2,
-            library_ms=None, bound_ms=bound, bound_by=by)
-        log(f"time gc_array_step {R}x{R}: kernel {k1!r} / {k2!r} ms, "
-            f"device {d!r} ms, plain {p1!r} / {p2!r} ms, bound {bound!r} ms "
-            f"({by}) [{card}]")
+            library_ms=None, bound_ms=bound, bound_by=by, sfu_ms=sfu)
+        log(f"time gc_array_step {R}x{R} ({geom.cols} columns x "
+            f"{geom.row_groups} row groups, cluster {geom.cluster}, "
+            f"{geom.blocks} blocks): kernel {k1!r} / {k2!r} ms, device "
+            f"{d!r} ms, plain {p1!r} / {p2!r} ms, bound {bound!r} ms ({by}), "
+            f"SFU floor {sfu!r} ms [{card}]")
+    # the write path's 200 steps, warm, by events
+    v_sn, v_bl, wwl, wbl, rwl = write_inputs(512, 512, dev)
+
+    def write():
+        sn, bl = v_sn, v_bl
+        for _ in range(WRITE_STEPS):
+            sn, bl = ops.gc_array_step(sn, bl, wwl, wbl, rwl, 1e-11, p)
+    walls = [time_ms(write, 1, warm=1) for _ in range(3)]
+    log(f"time array write {WRITE_STEPS} steps 512x512 warm (events): "
+        f"{', '.join(repr(w) for w in walls)} ms [{card}]")
     return out
 
 
@@ -1158,6 +1283,7 @@ def main() -> int:
     from repro_torch.kernels.batched_solve import fused
     from repro_torch.kernels.batched_solve.fused import \
         fused_newton_scan_plain
+    from repro_torch.kernels.batched_solve.kernel import batched_solve
     from repro_torch.kernels.batched_solve.newton import newton_solve_fixed
 
     dev = torch.device("cuda", 0)
@@ -1241,7 +1367,9 @@ def main() -> int:
             if precision == "f64":
                 max_err[label] = err
     step_launches = fused.fused_newton.launches
+    batched_solve.block_launches = 0
     gj_err = check_gauss_jordan(dev)
+    gj_block_launches = batched_solve.block_launches
     gc_err = check_gc_array_step(dev)
     fa_err = check_flash_attention(dev)
 
@@ -1359,6 +1487,7 @@ def main() -> int:
     # -- 10. summary lines
     t16 = timings["B=16"]
     gj = new_times["gauss_jordan B=1"]
+    gj_block = new_times["gauss_jordan block"]
     gc = new_times["gc_array_step 512x512"]
     fa, f32 = fa_times["tc"]["mix"], fa_times["f32"]["mix"]
     kernels = [{
@@ -1378,13 +1507,23 @@ def main() -> int:
         "ms": t16["ms"], "plain_ms": t16["plain_ms"],
         "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
         "library_ms": None}, {
-        "name": "gauss_jordan", "route": "cuda",
+        # the warp kernel: every solve of the compile path (N = 13)
+        "name": "gauss_jordan_warp", "route": "cuda",
         "source": "src/repro_torch/csrc/gauss_jordan.cu",
         "replaces": "src/repro/kernels/batched_solve/kernel.py:31",
-        "launches": compiled["launches"], "max_abs_err": gj_err,
+        "launches": compiled["launches"], "max_abs_err": gj_err["warp"],
         "ms": gj["ms"], "plain_ms": gj["plain_ms"],
         "bound_ms": gj["bound_ms"], "bound_by": gj["bound_by"],
         "library_ms": gj["library_ms"]}, {
+        # the block kernel (32 < N <= 240): the paths run none, so its
+        # launches are those of the phase-3 checks
+        "name": "gauss_jordan", "route": "cuda",
+        "source": "src/repro_torch/csrc/gauss_jordan.cu",
+        "replaces": "src/repro/kernels/batched_solve/kernel.py:31",
+        "launches": gj_block_launches, "max_abs_err": gj_err["block"],
+        "ms": gj_block["ms"], "plain_ms": gj_block["plain_ms"],
+        "bound_ms": gj_block["bound_ms"], "bound_by": gj_block["bound_by"],
+        "library_ms": gj_block["library_ms"]}, {
         "name": "gc_array_step", "route": "cuda",
         "source": "src/repro_torch/csrc/gc_array_step.cu",
         "replaces": "src/repro/kernels/gc_array_step/kernel.py:37",

@@ -13,13 +13,22 @@
 // DV is 1e-4 for both, as in the Pallas kernel; the reference's oracle
 // (ref.py) takes 1e-3 for the rail conductance.
 //
-// Work split: a block holds up to 32 columns (threadIdx.x; fewer when
-// block_c is smaller) and up to 32 row groups (threadIdx.y, `ty`); thread
-// (x, y) owns column x and rows y, y + ty, y + 2 ty, ... The storage-node Newton is per cell, so the row groups
-// run it in parallel; the column sums are taken per row group in row
-// order, then over the groups in group order in shared memory, by the
-// group-0 thread, which also updates the rail. The order is fixed, so
-// the result does not change from run to run.
+// Work split, chosen by the caller (kernel.py `geometry`) so that the
+// grid covers every SM: a block holds `bx` columns (threadIdx.x, 2 to 8
+// of them at the array sizes of the paths) and `ty` row groups
+// (threadIdx.y); a thread-block cluster of `cs` blocks (1 to 8) shares
+// one column block's rows. Thread (x, y) of cluster rank q owns column x
+// of its column block and rows g, g + G, g + 2G, ... with g = q*ty + y
+// and G = cs*ty. The storage-node Newton is per cell, so every row group
+// runs it in parallel. The column sums are taken in a fixed order: per
+// thread in row order, then a tree over the block's row groups in shared
+// memory, then over the cluster's ranks in rank order, each block
+// reading the others' block sums through distributed shared memory. Every
+// block of a cluster so computes the same rail, bit for bit, and the
+// output does not change from launch to launch. cluster.sync() comes
+// before each rail update (every rank's block sum is ready) and after it
+// (no rank rewrites its sums, or exits, while another still reads them).
+// One launch, two Gauss-Seidel sweeps, no atomics, no grid-wide sync.
 //
 // All float32, as the Pallas kernel; the 16 device and rail parameters
 // arrive by value. Every product that feeds a sum is an __fmul_rn, so nvcc
@@ -29,15 +38,17 @@
 //
 // Layouts (row-major, contiguous float32): v_sn (R,C), v_bl (C,), wwl
 // (R,), wbl (C,), rwl (R,); out_sn (R,C), out_bl (C,). The storage-node
-// iterates live in out_sn between the sweeps; neighbouring threads touch
-// neighbouring columns, so every row access is coalesced.
+// iterates live in out_sn between the sweeps. A warp touches bx
+// neighbouring columns of 32/bx rows: short row segments, which cost
+// little, since one step moves 2.1 MB at 512x512 (~0.6 us of HBM time).
 //
 // What bounds it: per cell it reads and writes 8 bytes and evaluates the
-// channel model 16 times (about 680 float32 operations with expf and
-// log1pf, each a dependent chain), so it is bound by operations and, at
-// a few hundred columns, by how few blocks there are to spread over the
-// 132 SMs.
+// channel model 16 times (about 680 float32 operations with 32 expf and
+// 32 log1pf, each evaluation a dependent chain), so it is bound by
+// operations and, where the array has few cells per SM, by the length
+// of one thread's chain.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 // the 16 parameters, passed by value through the C interface (outside the
@@ -56,11 +67,12 @@ constexpr float DV = 1e-4f;
 constexpr float PHI_T = 0.02585f;
 constexpr float PHI_T2 = static_cast<float>(0.02585 * 0.02585);
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_COLS = 32;       // columns per block
-constexpr int ROW_GROUPS = 32;     // threads sharing one column's rows
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 
 constexpr int ERR_SHAPE = -1;
-constexpr int ERR_BLOCK = -2;
+constexpr int ERR_GEOMETRY = -2;
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
@@ -98,22 +110,28 @@ gc_array_step_kernel(const float* __restrict__ v_sn,
                      const float h, float* __restrict__ out_sn,
                      float* __restrict__ out_bl, int R, int C) {
   extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int bx = blockDim.x, ty = blockDim.y;
   const int x = threadIdx.x, y = threadIdx.y;
   float* part = smem;                  // (ty, bx) partial i_col
   float* part2 = part + ty * bx;       // (ty, bx) partial i_col at vbl + DV
   float* rail = part2 + ty * bx;       // (bx,) the rail after each sweep
-  const int c = blockIdx.x * bx + x;
+  const int c = (blockIdx.x / cs) * bx + x;
   const bool active = c < C;           // inactive threads still sync
+  const int G = cs * ty;               // row groups of one column
   const float wbl_c = active ? wbl[c] : 0.0f;
   const float vbl_prev = active ? v_bl[c] : 0.0f;
+  int half = 1;                        // the tree's first stride
+  while (2 * half < ty) half *= 2;
   if (y == 0) rail[x] = vbl_prev;
   __syncthreads();
   for (int sweep = 0; sweep < GS_SWEEPS; ++sweep) {
     const float vbl = rail[x];
     const float vbl2 = vbl + DV;
     float i_col = 0.0f, i_col2 = 0.0f;
-    for (int r = y; active && r < R; r += ty) {
+    for (int r = rank * ty + y; active && r < R; r += G) {
       // storage node, rail frozen: write device gate=WWL, SN <-> WBL
       const size_t e = static_cast<size_t>(r) * C + c;
       const float prev = v_sn[e];
@@ -140,11 +158,22 @@ gc_array_step_kernel(const float* __restrict__ v_sn,
     part[y * bx + x] = i_col;
     part2[y * bx + x] = i_col2;
     __syncthreads();
+    // the block's row groups: a tree in shared memory, fixed order
+    for (int s = half; s > 0; s >>= 1) {
+      if (y < s && y + s < ty) {
+        part[y * bx + x] += part[(y + s) * bx + x];
+        part2[y * bx + x] += part2[(y + s) * bx + x];
+      }
+      __syncthreads();
+    }
+    cluster.sync();                    // every rank's block sum is ready
     if (y == 0) {
+      // the cluster's ranks in rank order; every block sums alike
       float sum = 0.0f, sum2 = 0.0f;
-      for (int k = 0; k < ty; ++k) {
-        sum += part[k * bx + x];
-        sum2 += part2[k * bx + x];
+      for (int q = 0; q < cs; ++q) {
+        const float* remote = cluster.map_shared_rank(part, q);
+        sum += remote[x];
+        sum2 += remote[ty * bx + x];
       }
       const float g_cells = (sum2 - sum) / DV;
       const float num = __fmul_rn(p.c_bl / h, vbl_prev) +
@@ -153,43 +182,56 @@ gc_array_step_kernel(const float* __restrict__ v_sn,
       const float den = p.c_bl / h + p.g_bl + g_cells;
       rail[x] = num / den;
     }
-    __syncthreads();
+    // the rail is visible to the block, and no rank rewrites (or leaves)
+    // its sums while another still reads them
+    cluster.sync();
   }
-  if (active && y == 0) out_bl[c] = rail[x];
+  if (active && y == 0 && rank == 0) out_bl[c] = rail[x];
 }
 
 }  // namespace
 
 extern "C" {
 
-// block_c: columns per block, capped at MAX_COLS. Returns 0, a negative argument
-// error, or the cudaError_t of the launch.
-int gc_array_step_launch(int R, int C, int block_c, const float* v_sn,
-                         const float* v_bl, const float* wwl, const float* wbl,
-                         const float* rwl, GcParams p, float h, float* out_sn,
-                         float* out_bl, void* stream) {
+// One launch of ceil(C / bx) * cs blocks of (bx, ty) threads in clusters
+// of cs blocks (kernel.py `geometry` chooses them). Returns 0, a negative
+// argument error, or the cudaError_t of the launch; a cluster launch the
+// card refuses is an error, never a smaller launch.
+int gc_array_step_launch(int R, int C, int bx, int ty, int cs,
+                         const float* v_sn, const float* v_bl,
+                         const float* wwl, const float* wbl, const float* rwl,
+                         GcParams p, float h, float* out_sn, float* out_bl,
+                         void* stream) {
   if (R < 1 || C < 1) return ERR_SHAPE;
-  if (block_c < 1 || block_c > MAX_THREADS) return ERR_BLOCK;
-  // columns per block: block_c, at most a warp's width, so that a few
-  // hundred columns still spread over several SMs; the rest of the block
-  // goes to row groups
-  int bx = block_c < C ? block_c : C;
-  bx = bx > MAX_COLS ? MAX_COLS : bx;
-  int ty = MAX_THREADS / bx;
-  ty = ty > ROW_GROUPS ? ROW_GROUPS : ty;
-  ty = ty > R ? R : ty;
-  const dim3 block(bx, ty), grid((C + bx - 1) / bx);
-  const size_t smem = (2 * static_cast<size_t>(ty) + 1) * bx * sizeof(float);
-  gc_array_step_kernel<<<grid, block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      v_sn, v_bl, wwl, wbl, rwl, p, h, out_sn, out_bl, R, C);
+  if (bx < 1 || ty < 1 || bx * ty > MAX_THREADS || cs < 1 ||
+      cs > MAX_CLUSTER)
+    return ERR_GEOMETRY;
+  const int col_blocks = (C + bx - 1) / bx;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(col_blocks * cs);
+  cfg.blockDim = dim3(bx, ty);
+  cfg.dynamicSmemBytes =
+      (2 * static_cast<size_t>(ty) + 1) * bx * sizeof(float);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gc_array_step_kernel, v_sn, v_bl, wwl, wbl, rwl, p, h, out_sn,
+      out_bl, R, C);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* gc_array_step_error(int code) {
   switch (code) {
     case ERR_SHAPE: return "array must have R >= 1 rows and C >= 1 columns";
-    case ERR_BLOCK: return "block_c outside 1..1024";
+    case ERR_GEOMETRY:
+      return "geometry outside 1 <= bx * ty <= 1024, 1 <= cs <= 8";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -22,12 +22,15 @@ NEWTON_DV = 1e-4    # finite-difference step of the storage-node Newton
 ORACLE_RAIL_DV = 1e-3
 
 
-def step_body(v_sn, v_bl, wwl, wbl, rwl, h, p, rail_dv):
+def step_body(v_sn, v_bl, wwl, wbl, rwl, h, p, rail_dv, colsum=None):
     """GS_SWEEPS Gauss-Seidel sweeps of (NEWTON Newton iterations per
     storage node, rails frozen; then the linearized rail KCL per column
     from column sums). `p` holds the 16 parameters, "lw" and "lr" as
     tensors; `rail_dv` is the step of the rail conductance's difference
-    quotient."""
+    quotient; `colsum` maps the (R, C) cell currents to their (C,) column
+    sums (torch's `sum(0)` unless given)."""
+    if colsum is None:
+        colsum = lambda x: x.sum(0)
     one = torch.ones((), dtype=v_sn.dtype, device=v_sn.device)
 
     def i_write(vsn, row_wwl, col_wbl):
@@ -58,10 +61,10 @@ def step_body(v_sn, v_bl, wwl, wbl, rwl, h, p, rail_dv):
 
         # --- rail update: linearized KCL with column-summed currents ---
         i_cells = i_read(v_sn_new, v_bl_new[None, :], rwl[:, None])
-        i_col = i_cells.sum(0)                        # (C,) leaving BL
+        i_col = colsum(i_cells)                       # (C,) leaving BL
         # conductance of cells wrt BL (numerical, for implicit rail)
-        g_cells = (i_read(v_sn_new, (v_bl_new + rail_dv)[None, :],
-                          rwl[:, None]).sum(0) - i_col) / rail_dv
+        g_cells = (colsum(i_read(v_sn_new, (v_bl_new + rail_dv)[None, :],
+                                 rwl[:, None])) - i_col) / rail_dv
         num = (p["c_bl"] / h) * v_bl + p["g_bl"] * p["v_bl_drv"] \
             - (i_col - g_cells * v_bl_new)
         den = p["c_bl"] / h + p["g_bl"] + g_cells

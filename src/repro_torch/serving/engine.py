@@ -50,7 +50,7 @@ import torch
 from repro_torch.models.model import Model
 from repro_torch.serving.sampling import sample_host, sample_tokens
 
-TOP_K_MAX = 64      # width of the device sampler's top-k candidates
+TOP_K_MAX = 64      # default width of the device sampler's top-k candidates
 
 
 @dataclasses.dataclass
@@ -71,9 +71,9 @@ class Request:
 class RequestStats:
     """Lifecycle record of one COMPLETED request, appended to
     `ServeEngine.request_log` at retire. Timestamps come from the engine
-    clock — `time.monotonic` by default, or an attached telemetry
-    collector's virtual clock. The first token is sampled at admission,
-    so `t_first_s == t_admit_s`."""
+    clock — the `clock` it was given, else an attached telemetry
+    collector's virtual clock, else `time.monotonic`. The first token is
+    sampled at admission, so `t_first_s == t_admit_s`."""
     rid: int
     prompt_len: int
     emitted: int
@@ -98,7 +98,8 @@ class ServeEngine:
     weights, on the device the engine runs on) for config `cfg`."""
 
     def __init__(self, cfg, model, *, n_slots=4, window=512, seed=0,
-                 mode="device", decode_chunk=8, telemetry=None):
+                 mode="device", decode_chunk=8, top_k_max=TOP_K_MAX,
+                 telemetry=None, clock=None):
         if mode not in ("device", "host"):
             raise ValueError(f"mode must be 'device' or 'host': {mode!r}")
         if not isinstance(model, Model):
@@ -112,6 +113,7 @@ class ServeEngine:
         self.mode = mode
         self.decode_chunk = max(1, int(decode_chunk)) if mode == "device" \
             else 1
+        self.top_k_max = top_k_max
         # device sampling stream; the np rng only feeds the host-mode
         # reference sampler — the two streams intentionally differ
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -128,10 +130,11 @@ class ServeEngine:
         # which every slot would sit frozen
         self._pred = [0] * n_slots
 
-        # the engine clock: the collector's (virtual clocks make replays
-        # deterministic), else wall time
+        # the engine clock: `clock` if given, else the collector's
+        # (virtual clocks make replays deterministic), else wall time
         self.telemetry = telemetry
-        self.clock = getattr(telemetry, "clock", None) or time.monotonic
+        self.clock = clock if clock is not None else \
+            (getattr(telemetry, "clock", None) or time.monotonic)
         self.request_log: List[RequestStats] = []
         # host-tracked per-slot context length (KV-cache rows in use)
         self._ctx = [0] * n_slots
@@ -154,12 +157,13 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         if (self.mode == "device" and req.temperature > 0
-                and req.top_k > TOP_K_MAX):
+                and req.top_k > self.top_k_max):
             warnings.warn(
-                f"request {req.rid}: top_k={req.top_k} exceeds the device "
-                f"sampler's {TOP_K_MAX} candidates; device sampling draws "
-                f"from the top {TOP_K_MAX} only (host mode would use the "
-                f"full top_k)")
+                f"request {req.rid}: top_k={req.top_k} exceeds the "
+                f"engine's top_k_max={self.top_k_max}; device sampling "
+                f"draws from the top {self.top_k_max} candidates only (host "
+                f"mode would use the full top_k) — raise "
+                f"ServeEngine(top_k_max=...) for wider sampling")
         req.out_tokens = []
         req.t_submit_s = self.clock()
         self.queue.append(req)
@@ -220,7 +224,7 @@ class ServeEngine:
             meta_d, r_temp = self._upload(meta_i), self._upload(temp)
             logits, rows, rpos = self.model.prefill(batch, W=self.window)
             tok = sample_tokens(logits, self.gen, r_temp, meta_d[0],
-                                k_max=TOP_K_MAX)[:B]
+                                k_max=self.top_k_max)[:B]
             r_topk, r_maxnew, r_eos = meta_d[:, :B]
             fin = (r_maxnew <= 1) | ((r_eos >= 0) & (tok == r_eos))
             for name, c in self.cache.items():
@@ -299,7 +303,8 @@ class ServeEngine:
         and live blocks to the host, WITHOUT waiting. Returns what
         `_reconcile` needs."""
         samp = lambda lg: sample_tokens(lg, self.gen, self._temp_d,
-                                        self._topk_d, k_max=TOP_K_MAX)
+                                        self._topk_d,
+                                        k_max=self.top_k_max)
         (self.cache, self.last_tok, self.pos, self.emitted, self.done_mask,
          toks, live) = self.model.decode_loop(
             self.cache, self.last_tok, self.pos, self.emitted,

@@ -119,3 +119,17 @@ def test_plain_version_is_the_kernel_arithmetic():
     want = r64 / np.diagonal(A64, axis1=1, axis2=2)
     got = kernel.gauss_jordan_plain(torch.tensor(A), torch.tensor(r))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("N,kind", [(1, "warp"), (12, "warp"), (13, "warp"),
+                                    (16, "warp"), (17, "warp"), (32, "warp"),
+                                    (33, "block"), (130, "block"),
+                                    (240, "block")])
+def test_route_picks_the_kernel_by_system_size(N, kind):
+    assert kernel.route(N) == kind
+
+
+@pytest.mark.parametrize("N", [0, -3, 241, 1024])
+def test_route_raises_outside_the_kernels(N):
+    with pytest.raises(ValueError):
+        kernel.route(N)

@@ -18,6 +18,7 @@ from repro.kernels.gc_array_step import ops as ref_ops  # noqa: E402
 from repro.kernels.gc_array_step.ref import gc_array_step_ref as ref_oracle  # noqa: E402,E501
 from repro_torch.kernels.gc_array_step import kernel, ops  # noqa: E402
 from repro_torch.kernels.gc_array_step.ref import gc_array_step_ref  # noqa: E402,E501
+from repro_torch.kernels.gc_array_step.ref import step_body  # noqa: E402
 
 SHAPES = [(16, 16, 16), (32, 48, 16), (64, 130, 64), (8, 8, 128)]
 # plain version vs the reference kernel, both float32: the storage nodes
@@ -113,3 +114,122 @@ def test_write_physics_matches_reference():
     assert float(v_sn[5].abs().max()) < 0.05
     np.testing.assert_allclose(v_sn.numpy(), np.asarray(r_sn), atol=1e-4)
     np.testing.assert_allclose(v_bl.numpy(), np.asarray(r_bl), atol=1e-4)
+
+
+# -- the kernel's launch geometry (csrc/gc_array_step.cu, "Work split") ------
+
+N_SM = 132      # SMs of an H100 SXM
+
+
+def _owned_cells(R, C, geom):
+    """Yield (row, column) for every cell of every thread of the launch,
+    walking the kernel's loops: block b is rank b % cluster of column
+    block b // cluster; thread (x, y) owns column x of it and rows
+    rank * row_groups + y, stepping by cluster * row_groups."""
+    step = geom.cluster * geom.row_groups
+    for b in range(geom.blocks):
+        col_block, rank = divmod(b, geom.cluster)
+        for y in range(geom.row_groups):
+            for x in range(geom.cols):
+                c = col_block * geom.cols + x
+                if c < C:
+                    for r in range(rank * geom.row_groups + y, R, step):
+                        yield r, c
+
+
+def _kernel_colsum(geom):
+    """Column sums of (R, C) float32 cell currents in the kernel's order
+    under `geom`: each thread's rows in row order, a tree over a block's
+    row groups (strides halving from the largest power of two below
+    `row_groups`), then the cluster's ranks in rank order."""
+    def colsum(x):
+        R, C = x.shape
+        ty, cs = geom.row_groups, geom.cluster
+        G = cs * ty
+        pad = torch.zeros((-(-R // G) * G - R, C), dtype=x.dtype)
+        rows = torch.cat([x, pad]).view(-1, G, C)
+        part = torch.zeros((G, C), dtype=x.dtype)
+        for k in range(rows.shape[0]):   # 0 + v == v: the pad adds nothing
+            part = part + rows[k]
+        part = part.view(cs, ty, C).clone()
+        s = 1
+        while 2 * s < ty:
+            s *= 2
+        while s > 0:
+            hi = min(2 * s, ty)
+            part[:, :hi - s] = part[:, :hi - s] + part[:, s:hi]
+            s //= 2
+        total = torch.zeros((C,), dtype=x.dtype)
+        for q in range(cs):
+            total = total + part[q, 0]
+        return total
+    return colsum
+
+
+def _step_plain_with(colsum, v_sn, v_bl, wwl, wbl, rwl, h, p):
+    """`kernel.step_plain` with the column sums taken by `colsum`."""
+    p = {k: torch.tensor(p[k], dtype=torch.float32) for k in kernel.PKEYS}
+    return step_body(v_sn, v_bl, wwl, wbl, rwl,
+                     torch.tensor(h, dtype=torch.float32), p, kernel.DV,
+                     colsum)
+GEOMETRY_SHAPES = [(512, 512, 128), (128, 128, 128), (64, 130, 128),
+                   (64, 130, 16), (64, 130, 1), (64, 2200, 128),
+                   (16, 16, 16), (8, 8, 128), (200, 3, 128), (1, 1, 1),
+                   (1000, 7, 3)]
+
+
+@pytest.mark.parametrize("R,C,bc", GEOMETRY_SHAPES)
+def test_geometry_is_a_valid_launch_that_owns_every_cell_once(R, C, bc):
+    g = kernel.geometry(R, C, bc, N_SM)
+    assert 1 <= g.cols <= min(bc, kernel.MAX_COLS)
+    assert 1 <= g.cols * g.row_groups <= 1024
+    assert g.cluster in (1, 2, 4, 8)
+    assert g.blocks == -(-C // g.cols) * g.cluster    # whole clusters
+    count = np.zeros((R, C), np.int64)
+    for r, c in _owned_cells(R, C, g):
+        count[r, c] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("R,C", [(512, 512), (128, 128)])
+def test_geometry_fills_every_sm_of_an_h100(R, C):
+    g = kernel.geometry(R, C, 128, N_SM)
+    assert g.blocks >= N_SM
+    assert g.cluster > 1        # the columns alone cannot fill the card
+    assert kernel.MIN_COLS <= g.cols <= kernel.MAX_COLS
+
+
+def test_geometry_block_c_only_caps_the_columns():
+    assert kernel.geometry(64, 2200, 128, N_SM).cols == 8
+    assert kernel.geometry(64, 2200, 4, N_SM).cols == 4
+    assert kernel.geometry(64, 2200, 1, N_SM).cols == 1
+    with pytest.raises(ValueError):
+        kernel.geometry(64, 64, 0, N_SM)
+
+
+# the array the column sums run over for each launch geometry: columns
+# are independent, so 512x512's order is checked on 64 of its columns
+ORDER_CASES = [((512, 512), 64), ((128, 128), 128), ((64, 130), 130)]
+
+
+@pytest.mark.parametrize("shape,cols", ORDER_CASES)
+def test_kernel_summation_order_keeps_the_rail_within_limits(shape, cols):
+    """The plain step with the kernel's column-sum order (per thread, a
+    tree over row groups, then the cluster's ranks) against torch's sums:
+    the storage nodes do not depend on the sums; the rail's difference
+    quotient magnifies their round-off, which must stay inside the
+    kernel-vs-plain limit the card is held to."""
+    R = shape[0]
+    g = kernel.geometry(*shape, 128, N_SM)
+    arrays = [torch.tensor(a) for a in _inputs(R, cols)]
+    p = ops.cell_params("gc2t_nn")
+    sn, bl = kernel.step_plain(*arrays, 2e-11, p)
+    same_sn, same_bl = _step_plain_with(None, *arrays, 2e-11, p)
+    assert torch.equal(same_sn, sn) and torch.equal(same_bl, bl)
+    k_sn, k_bl = _step_plain_with(_kernel_colsum(g), *arrays, 2e-11, p)
+    assert torch.equal(k_sn, sn)
+    assert float((k_bl - bl).abs().max()) <= ATOL_BL
+    x = torch.tensor(np.random.default_rng(R).uniform(-1, 1, (R, cols)),
+                     dtype=torch.float32)
+    np.testing.assert_allclose(_kernel_colsum(g)(x).numpy(),
+                               x.double().sum(0).numpy(), rtol=0, atol=1e-4)

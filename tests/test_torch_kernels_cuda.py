@@ -183,14 +183,36 @@ def _read_column_system(cuda, B, seed=0):
     return system.newton_system(v, v, h, wave)
 
 
-@pytest.mark.parametrize("B", [1, 4096])
-def test_gauss_jordan_matches_plain_on_the_path(cuda, B):
+def _dd_systems(cuda, B, N, seed=0):
+    """B diagonally dominant float64 systems of size N."""
+    rng = np.random.default_rng(seed + N)
+    A = rng.standard_normal((B, N, N)) * 0.1
+    A += np.eye(N)[None] * (np.abs(A).sum(-1).max() + 1.0)
+    return (torch.as_tensor(A, device=cuda),
+            torch.as_tensor(rng.standard_normal((B, N)), device=cuda))
+
+
+# N = 13: the path's read column (warp kernel, two systems per warp);
+# N = 32: the widest warp system; N = 33: the narrowest block system.
+# B = 64 is run_batch's batch
+@pytest.mark.parametrize("N", [13, 32, 33])
+@pytest.mark.parametrize("B", [1, 64, 4096])
+def test_gauss_jordan_matches_plain_on_the_path(cuda, B, N):
     from repro_torch.kernels.batched_solve.kernel import (batched_solve,
-                                                          gauss_jordan_plain)
-    J, r = _read_column_system(cuda, B)
-    before = batched_solve.launches
+                                                          gauss_jordan_plain,
+                                                          route)
+    if N == 13:
+        J, r = _read_column_system(cuda, B)
+    else:
+        J, r = _dd_systems(cuda, B, N)
+    assert J.shape[-1] == N
+    kind = route(N)
+    before = (batched_solve.launches, batched_solve.warp_launches,
+              batched_solve.block_launches)
     got = batched_solve(J.contiguous(), r.contiguous())
-    assert batched_solve.launches == before + 1
+    assert batched_solve.launches == before[0] + 1
+    assert batched_solve.warp_launches == before[1] + (kind == "warp")
+    assert batched_solve.block_launches == before[2] + (kind == "block")
     want = gauss_jordan_plain(J, r)
     torch.cuda.synchronize()
     assert got.dtype == torch.float64 and torch.isfinite(got).all()
@@ -224,20 +246,24 @@ def test_gauss_jordan_large_systems(cuda, dtype):
 
 # -- gain-cell array step (csrc/gc_array_step.cu) ----------------------------
 
-# kernel vs plain: the same float32 arithmetic but sequential column sums
-# and the card's expf/log1pf; the rail's difference quotient over
-# dv = 1e-4 turns sum-order round-off into up to ~1e-5 V on the CPU
-# (tests/test_torch_gc_array_step.py), so the limits are those of the
-# CPU parity test
+# kernel vs plain: the same float32 arithmetic but the kernel's order of
+# the column sums and the card's expf/log1pf; the rail's difference
+# quotient over dv = 1e-4 turns sum-order round-off into up to ~1e-5 V on
+# the CPU (tests/test_torch_gc_array_step.py), so the limits are those of
+# the CPU parity test
 GC_ATOL_SN, GC_ATOL_BL = 2e-6, 2e-4
 
 
-# bc None: the default block_c (32 columns per block); C = 130 is not a
-# multiple of it, and block_c = 16 gives blocks of 16 columns
+# bc None: the default block_c (128; at most 8 columns per block). At
+# 132 SMs, 128x128, 512x512 and 64x130 split each column's rows over a
+# cluster of blocks; 64x2200 fills the card with column blocks alone.
+# C = 130 and 2200 are not multiples of the block; block_c = 16 and 1 cap
+# the columns per block
 @pytest.mark.parametrize("R,C,bc", [(128, 128, None), (512, 512, None),
-                                    (64, 130, None), (64, 130, 16)])
+                                    (64, 130, None), (64, 130, 16),
+                                    (64, 130, 1), (64, 2200, None)])
 def test_gc_array_step_matches_plain(cuda, R, C, bc):
-    from repro_torch.kernels.gc_array_step import ops
+    from repro_torch.kernels.gc_array_step import kernel, ops
     from repro_torch.kernels.gc_array_step.kernel import step_plain
     rng = np.random.default_rng(R + C)
     p = ops.cell_params("gc2t_nn")
@@ -252,8 +278,15 @@ def test_gc_array_step_matches_plain(cuda, R, C, bc):
     kw = {} if bc is None else {"block_c": bc}
     sn, bl = ops.gc_array_step(v_sn, v_bl, wwl, wbl, rwl, 2e-11, p, **kw)
     assert ops.gc_array_step.launches == before + 1
+    geom = kernel.geometry(R, C, bc or 128, kernel.sm_count(cuda.index))
+    assert ops.gc_array_step.last_geometry == geom
+    if kernel.sm_count(cuda.index) == 132:     # H100 SXM
+        assert (geom.cluster > 1) == (C < 1000)
+    # a second launch gives the same bits: the sums run in a fixed order
+    sn2, bl2 = ops.gc_array_step(v_sn, v_bl, wwl, wbl, rwl, 2e-11, p, **kw)
     want_sn, want_bl = step_plain(v_sn, v_bl, wwl, wbl, rwl, 2e-11, p)
     torch.cuda.synchronize()
+    assert torch.equal(sn2, sn) and torch.equal(bl2, bl)
     assert float((sn - want_sn).abs().max()) <= GC_ATOL_SN
     assert float((bl - want_bl).abs().max()) <= GC_ATOL_BL
     ref_sn, ref_bl = ops.gc_array_step_ref(v_sn, v_bl, wwl, wbl, rwl, 2e-11,

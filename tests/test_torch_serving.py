@@ -120,6 +120,65 @@ def test_budgets_and_eos_stop_inside_a_chunk(pair):
     assert done[2] == base[:5]      # frozen mid-chunk at its budget
 
 
+class _CountingClock:
+    """A deterministic engine clock: each call returns the next second."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def test_injected_clock_stamps_request_stats_like_the_reference(pair):
+    ref_cfg, params, cfg, model = pair
+    prompts = _prompts(cfg.vocab_size)
+    kw = dict(n_slots=N_SLOTS, window=32, decode_chunk=CHUNK)
+    ref = RefEngine(ref_cfg, params, clock=_CountingClock(), **kw)
+    _serve(ref, RefRequest, prompts)
+    eng = ServeEngine(cfg, model, clock=_CountingClock(), **kw)
+    _serve(eng, Request, prompts)
+    fields = ("rid", "prompt_len", "emitted", "t_submit_s", "t_admit_s",
+              "t_first_s", "t_retire_s")
+    stamps = lambda log: [tuple(getattr(s, f) for f in fields) for s in log]
+    assert stamps(eng.request_log) == stamps(ref.request_log)
+    assert len(eng.request_log) == len(prompts)
+    # the injected clock wins over a collector's
+    tel = TelemetryCollector()
+    clock = _CountingClock()
+    assert ServeEngine(cfg, model, telemetry=tel, clock=clock,
+                       **kw).clock is clock
+
+
+@pytest.mark.parametrize("top_k_max", [64, 128])
+def test_top_k_max_sets_the_device_sampler_width(pair, top_k_max):
+    """A device-mode request with top_k = 100 draws from its top 100 under
+    top_k_max = 128, beyond the top 64, with no clipping warning; under
+    the default 64 it warns and stays inside the top 64."""
+    import warnings
+    _, _, cfg, model = pair
+    prompt = _prompts(cfg.vocab_size)[0]
+    logits, _, _ = model.prefill(
+        {"tokens": torch.tensor(prompt[None].astype(np.int32))}, W=32)
+    rank = np.argsort(np.argsort(-logits[0].float().numpy()))
+    eng = ServeEngine(cfg, model, n_slots=4, window=32, decode_chunk=CHUNK,
+                      top_k_max=top_k_max, seed=1)
+    assert eng.top_k_max == top_k_max
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for rid in range(48):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=1,
+                               temperature=50.0, top_k=100))
+    assert len(caught) == (48 if top_k_max < 100 else 0)
+    done, _ = eng.run()
+    ranks = np.array([rank[r.out_tokens[0]] for r in done])
+    assert len(ranks) == 48
+    assert ranks.max() < min(100, top_k_max)
+    if top_k_max > 64:
+        assert (ranks >= 64).sum() >= 5
+
+
 def test_sample_host_equals_reference():
     rng = np.random.default_rng(5)
     logits = rng.standard_normal((12, 40)).astype(np.float32) * 3

@@ -47,9 +47,17 @@ Phases:
      mode's; a warm device-mode serve is timed (wall, and its own prefill
      and decode spans by CUDA events); prefill logits through the kernel
      match the plain flash version at each of the serve's prefill shapes;
-     then 2-layer full-width float32 greedy streams on the card against
-     the CPU, counted: every prefill attention goes through the float32
-     flash-attention kernel;
+     then, the bf16 model freed, the same serve of `llama3.2-1b` at full
+     width and depth in float32 (TF32 off), counted: every prefill
+     attention goes through the float32 flash-attention kernel and none
+     through the tensor-core one; every request emits its budget; a warm
+     serve is timed (wall, prefill and decode spans) and one more is run
+     under the profiler for the float32 kernel's device ms per serve;
+     prefill logits through the kernel match the plain flash version at
+     each prefill shape within the float32 kernel limit of the largest
+     logit; then 2-layer full-width float32 greedy streams on the card
+     against the CPU, counted: every prefill attention goes through the
+     float32 flash-attention kernel;
   9. time the fused Newton scan kernel (per launch and per step, by CUDA
      events and the profiler's device time), its plain version, its bound
      and its dependent chain, and the one-step entry; the Gauss-Jordan
@@ -59,7 +67,8 @@ Phases:
      floor), the array path's warm 200-step write, and both
      flash-attention kernels (CUDA events and the profiler's device time;
      the tensor-core kernel at the serve's four prefill shapes, the
-     float32 kernel at the float32 serve's two), their plain versions,
+     float32 kernel at the same four and at the 2-layer float32 serve's
+     two), their plain versions,
      their bounds and the library calls (`torch.linalg.solve_ex` and
      `torch.linalg.solve`; `scaled_dot_product_attention` in the same
      call), and the warm compile and `run_batch` walls;
@@ -857,8 +866,12 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 LOGITS_RTOL = 3e-2
 CPU_LAYERS, CPU_PROMPTS, CPU_NEW = 2, 2, 16     # card vs CPU, float32
 CPU_LENS = (96, 200)        # its prompts: two admission groups of B = 1
-# the float32 kernel's shapes in that serve (timed)
+# the float32 kernel's shapes in that serve (timed, beside the full-width
+# float32 serve's, which are SERVE_FLASH_SHAPES)
 F32_FLASH_SHAPES = tuple((1, n, n, 32, 8, 64, 0, None) for n in CPU_LENS)
+# every prefill shape is launched this often in one serve: two admission
+# groups of each length, one launch per layer
+SERVE_LAUNCHES_PER_SHAPE = 2 * 16
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 
 
@@ -1091,16 +1104,119 @@ def serve_path(model, cfg, dev, card) -> dict:
         f"chunks ({times['decode_tok_s']!r} tok/s for the {n_decoded} "
         f"tokens emitted by decode) [{card}]")
 
-    for n in SERVE_LENS:
-        err, scale, finite = prefill_logits_vs_plain(model, cfg, dev, n)
-        ok = finite and err <= LOGITS_RTOL * scale
-        log(f"serve path: prefill logits (2 x {n} tokens) kernel vs plain "
-            f"flash on the card: max|d| {err!r} (limit {LOGITS_RTOL} x "
-            f"{scale!r}) {'ok' if ok else 'FAILED'}")
-        if not ok:
-            raise RuntimeError(f"serve path prefill logits at {n} tokens")
+    check_prefill_logits(model, cfg, dev, LOGITS_RTOL, "bf16")
     return {"launches": launches, "prefills": prefills,
             "n_layers": cfg.n_layers, "times": times}
+
+
+def check_prefill_logits(model, cfg, dev, rtol: float, label: str) -> float:
+    """Prefill logits through the kernel against the plain flash version
+    at each of the serve's prompt lengths, within `rtol` of the largest
+    logit; returns the largest relative error."""
+    worst = 0.0
+    for n in SERVE_LENS:
+        err, scale, finite = prefill_logits_vs_plain(model, cfg, dev, n)
+        ok = finite and err <= rtol * scale
+        log(f"serve path {label}: prefill logits (2 x {n} tokens) kernel vs "
+            f"plain flash on the card: max|d| {err!r} (limit {rtol} x "
+            f"{scale!r}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"serve path {label} prefill logits at {n} "
+                               f"tokens")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def serve_kernel_ms(model, cfg, kernel_name: str) -> tuple:
+    """One more device-mode serve of the workload under the profiler:
+    (summed device ms, count) of the kernels whose name holds
+    `kernel_name`."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_engine(model, cfg, "device")
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and kernel_name in ev.key:
+            total_us += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0))
+            count += ev.count
+    return total_us / 1e3, count
+
+
+def serve_path_f32(dev, card) -> dict:
+    """The float32 serving path at full width, counted: `llama3.2-1b` at
+    its 16 layers and published widths in float32 with seeded weights
+    (TF32 off), the bf16 serve's 16 requests through the same
+    `ServeEngine` in device mode, with the launch counters set to 0 just
+    before the run and read just after: every prefill attention goes
+    through the float32 flash-attention kernel, none through the
+    tensor-core one, and every request emits its budget. Then a warm serve
+    timed (wall, and its prefill and decode spans by `PhaseEvents`), one
+    more under the profiler for the float32 kernel's device ms per serve,
+    and the prefill logits through the kernel against the plain flash
+    version at each prefill shape, within the float32 kernel limit of the
+    largest logit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"serve path float32: {cfg.name} {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}, {model.param_count()} weights, seeded "
+        f"init on the card in {time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    eng, streams, wall = run_engine(model, cfg, "device")
+    counts = flash_counts()
+    launches, tc_launches = counts[torch.float32], counts[torch.bfloat16]
+    prefills = eng.admit_syncs
+    want = cfg.n_layers * prefills
+    ok = (launches == want and tc_launches == 0
+          and len(streams) == 4 * len(SERVE_LENS)
+          and all(len(t) == SERVE_MAX_NEW for t in streams.values())
+          and all(0 <= x < cfg.vocab_size for t in streams.values()
+                  for x in t))
+    log(f"serve path float32: {len(streams)} requests, "
+        f"{sum(map(len, streams.values()))} tokens in {wall:.2f} s (first "
+        f"run), {prefills} prefill dispatches, float32 flash_attention "
+        f"launches {launches} (expected {want}), flash_attention_tc "
+        f"launches {tc_launches} (expected 0) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("float32 serve path counts or budgets")
+
+    with PhaseEvents(model) as phases:
+        eng, timed, wall = run_engine(model, cfg, "device")
+    pre_ms, dec_ms = phases.ms("prefill"), phases.ms("decode_loop")
+    if timed != streams:
+        raise RuntimeError("the timed float32 serve's streams differ from "
+                           "the counted run's")
+    flash_ms, flash_n = serve_kernel_ms(model, cfg, "flash_attention_kernel")
+    n_prompt = sum(len(r.prompt) for r in serve_requests(cfg.vocab_size))
+    n_new = sum(map(len, timed.values()))
+    n_decoded = n_new - len(timed)
+    times = dict(wall_s=wall, tokens=n_new, prefill_ms=pre_ms,
+                 decode_ms=dec_ms, prefill_tok_s=n_prompt / (pre_ms / 1e3),
+                 decode_tok_s=n_decoded / (dec_ms / 1e3),
+                 flash_device_ms=flash_ms if flash_n == want else None)
+    log(f"time serve {cfg.name} float32 warm: {len(timed)} requests, "
+        f"{n_prompt} prompt + {n_new} generated tokens in {wall!r} s "
+        f"({n_new / wall!r} generated tok/s); prefill spans {pre_ms!r} ms "
+        f"({times['prefill_tok_s']!r} prompt tok/s); decode spans "
+        f"{dec_ms!r} ms ({times['decode_tok_s']!r} tok/s); float32 flash "
+        f"kernel device time {flash_ms!r} ms over {flash_n} launches per "
+        f"serve (profiler; expected {want} launches) [{card}]")
+    worst = check_prefill_logits(model, cfg, dev, FLASH_ATOL[torch.float32],
+                                 "float32")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefills": prefills,
+            "n_layers": cfg.n_layers, "times": times, "logits_rel": worst}
 
 
 def serve_cpu_parity(dev) -> int:
@@ -1204,15 +1320,19 @@ def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
 
 
 def time_flash(dev, card) -> dict:
-    """The tensor-core kernel at the bf16 serve's four prefill shapes and
-    the float32 kernel at the float32 serve's two; each mean is the serve's
-    mean per launch (each shape is launched equally often)."""
+    """The tensor-core kernel at the serve's four prefill shapes, the
+    float32 kernel at the same four (the full-width float32 serve's) and at
+    the 2-layer float32 serve's two; each mean is a serve's mean per launch
+    (each shape is launched equally often)."""
     return {"tc": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
                                     torch.bfloat16,
                                     "flash_attention_tc_kernel"),
-            "f32": time_flash_shapes(dev, card, F32_FLASH_SHAPES,
+            "f32": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
                                      torch.float32,
-                                     "flash_attention_kernel")}
+                                     "flash_attention_kernel"),
+            "f32_parity": time_flash_shapes(dev, card, F32_FLASH_SHAPES,
+                                            torch.float32,
+                                            "flash_attention_kernel")}
 
 
 def time_scan(dev, group, banks, card) -> dict:
@@ -1450,7 +1570,8 @@ def main() -> int:
     served = serve_path(model, cfg, dev, card)
     del model
     torch.cuda.empty_cache()
-    f32_launches = serve_cpu_parity(dev)
+    served_f32 = serve_path_f32(dev, card)
+    parity_launches = serve_cpu_parity(dev)
 
     # -- 9. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
@@ -1534,7 +1655,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
-        "launches": f32_launches, "max_abs_err": fa_err[torch.float32],
+        "launches": served_f32["launches"],
+        "max_abs_err": fa_err[torch.float32],
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"]}, {
@@ -1546,7 +1668,9 @@ def main() -> int:
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"]}]
     if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0 \
-            or served["launches"] != served["n_layers"] * served["prefills"]:
+            or parity_launches <= 0 or any(
+                s["launches"] != s["n_layers"] * s["prefills"]
+                for s in (served, served_f32)):
         log("FAILED: a kernel of a path was never launched")
         return 1
     log(card)

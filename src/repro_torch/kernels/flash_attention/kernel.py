@@ -15,18 +15,24 @@ Which kernel serves which dtype (`route` decides, from q's dtype):
   bf16 with float32 sums, cp.async K/V staging), launched by
   `flash_attention_tc`, counted in `flash_attention_tc.launches`;
 - float32: `csrc/flash_attention.cu`, on the float32 CUDA cores (TF32
-  would break the reference's float32 contract), launched by
-  `flash_attention_f32`, counted in `flash_attention_f32.launches`.
+  would break the reference's float32 contract; register-tiled Q K^T and
+  P V, cp.async K/V staging), launched by `flash_attention_f32`, counted
+  in `flash_attention_f32.launches`.
 
 `flash_attention_fwd` launches one of them for CUDA tensors and raises if
 the arguments, the build or the launch fail; CPU tensors take
 `flash_attention_plain`, the blocked pure-torch attention of
 `repro/models/attention.py:75-165` (chunks of `chunk_q` queries and
 `chunk_kv` keys, the same float32 online softmax and the same rounding of
-p). All three refresh the running max once per chunk of `chunk_kv` keys,
-the kernels by a first pass over the chunk's tiles for its max, so they
-round p against the same max; they differ only in the order of float32
-sums.
+p). Refresh schedule of the running max: the plain version and the bf16
+kernel refresh it once per chunk of `chunk_kv` keys (the kernel by a first
+pass over the chunk's tiles for its max), so that they round p to bf16
+against the same max; the float32 kernel refreshes it once per key tile
+of `F32_KEY_TILE` keys in one pass, whatever `chunk_kv`: at float32 every
+schedule is the same function and moves only float32 rounding, so it
+agrees with the plain version at any `chunk_kv` within the float32 limit,
+and the plain version run with `chunk_kv=F32_KEY_TILE` follows its
+schedule.
 """
 from __future__ import annotations
 
@@ -39,8 +45,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # both sources' launch switches
-MAX_GROUP = 128                  # query heads per kv head (f32 MAX_ROWS)
-ALIGN = 16                       # bytes; the tc kernel's cp.async rows
+ALIGN = 16                       # bytes; both kernels' cp.async rows
+F32_KEY_TILE = 64                # keys per max refresh of the f32 kernel
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -112,13 +118,15 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
 
 
 def _launch(name: str, q, k, v, args):
+    index = q.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(name, q, k, v, args)
     lib = _lib(name)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = getattr(lib, f"{name}_launch")(
-            *args, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            stream)
+    rc = getattr(lib, f"{name}_launch")(
+        *args, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        build.raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + getattr(lib, f"{name}_error")(rc).decode())
@@ -167,10 +175,10 @@ def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
-    if H % K or H // K > MAX_GROUP:
+    if H % K:
         raise ValueError(f"flash_attention kernel takes H a multiple of K "
-                         f"with at most {MAX_GROUP} heads per kv head; got "
-                         f"H={H}, K={K}")
+                         f"(whole query heads per kv head); got H={H}, "
+                         f"K={K}")
     if not 1 <= kv_len <= Skv or q_offset < 0 or min(B, Sq, Skv) < 1 \
             or chunk_kv < 1:
         raise ValueError(f"flash_attention kernel takes 1 <= kv_len <= Skv, "
@@ -186,10 +194,9 @@ def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and any(
-            x.data_ptr() % ALIGN for x in (q, k, v)):
-        raise ValueError(f"flash_attention_tc kernel takes q, k, v aligned "
-                         f"to {ALIGN} bytes")
+    if any(x.data_ptr() % ALIGN for x in (q, k, v)):
+        raise ValueError(f"flash_attention kernels take q, k, v aligned to "
+                         f"{ALIGN} bytes")
     # one chunk of Skv keys is the same as any longer one, and fits an int
     args = (B, Sq, Skv, H, K, hd, int(q_offset), kv_len, int(bool(causal)),
             min(int(chunk_kv), Skv))
@@ -204,9 +211,9 @@ def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
     all bfloat16 -> (B, Sq, H, hd). The one place that chooses between the
     kernels and the plain version: CPU tensors run `flash_attention_plain`
     (with `window`, `chunk_q` and `chunk_kv`), CUDA tensors launch the
-    kernel `route` picks for their dtype, which picks its own tiles,
-    refreshes the running max once per `chunk_kv` keys and takes no
-    window."""
+    kernel `route` picks for their dtype, which picks its own tiles and
+    takes no window; the bf16 kernel refreshes the running max once per
+    `chunk_kv` keys, the float32 one once per `F32_KEY_TILE` keys."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, kv_len=kv_len,

@@ -8,9 +8,11 @@ runs the plain blocked version `kernel.flash_attention_plain` with chunks
 of `bq` queries and `bkv` keys. The reference pads Sq and Skv to its blocks and
 leaves padded keys unmasked when q_offset + Sq > Skv; the port pads
 nothing and masks by bounds and by `kv_len`. The kernels pick their own
-tiles, so `bq` shapes only the plain version; all refresh the running
-softmax max once per `bkv` keys. The kernels take no `window` (a CUDA
-call with one raises NotImplementedError).
+tiles, so `bq` shapes only the plain version; the plain version and the
+bf16 kernel refresh the running softmax max once per `bkv` keys, the
+float32 kernel once per key tile (`kernel.F32_KEY_TILE`), which at float32
+moves only rounding. The kernels take no `window` (a CUDA call with one
+raises NotImplementedError).
 """
 from __future__ import annotations
 

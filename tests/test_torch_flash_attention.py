@@ -75,6 +75,38 @@ def test_plain_matches_pallas_kernel(B, Sq, Skv, H, K, hd, causal, off):
                                atol=ATOL_KERNEL_F32)
 
 
+# the float32 serves' prefill shapes scaled down (B, S, H, K, hd): the
+# full-width serve's B = 2 at S = 128 and 256, the 2-layer parity serve's
+# B = 1 at S = 96 and 200, and hd = 128 (llama3.2-3b)
+F32_SCHEDULE_CASES = [
+    (2, 128, 8, 2, 64),
+    (2, 256, 8, 2, 64),
+    (1, 96, 8, 2, 64),
+    (1, 200, 8, 2, 64),
+    (2, 80, 6, 2, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", F32_SCHEDULE_CASES)
+def test_plain_at_the_f32_kernel_schedule_matches_pallas(B, S, H, K, hd):
+    """The float32 kernel refreshes its running max once per key tile of
+    `F32_KEY_TILE` keys, as the Pallas kernel does once per block of bkv
+    keys: the plain version run at that schedule matches the Pallas kernel
+    at bkv = F32_KEY_TILE within the float32 limit, and the serve's own
+    schedule (one 1024-key chunk) within the same limit."""
+    tile = kernel.F32_KEY_TILE
+    q, k, v = _qkv(B + S + hd, B, S, S, H, K, hd)
+    want = ref_fa_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), bq=tile, bkv=tile)
+    got = kernel.flash_attention_plain(_t(q), _t(k), _t(v), chunk_q=tile,
+                                       chunk_kv=tile)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+    serve = kernel.flash_attention_plain(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), serve.numpy(), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+
+
 def test_plain_matches_pallas_kernel_bf16():
     q, k, v = _qkv(7, 1, 64, 64, 4, 2, 32)
     bf = jnp.bfloat16
@@ -165,10 +197,11 @@ def test_route_picks_the_kernel_by_dtype(dtype, kern):
     assert args == (2, 12, 20, 8, 2, 64, 0, 20, 0, 20)
 
 
-def _misaligned_bf16(shape):
-    """A contiguous bf16 view that starts 2 bytes into its storage."""
+def _misaligned(dtype, shape):
+    """A contiguous view that starts one element (2 or 4 bytes) into its
+    storage."""
     n = int(np.prod(shape))
-    return torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shape)
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
 
 
 @pytest.mark.parametrize("case,error,match", [
@@ -179,8 +212,9 @@ def _misaligned_bf16(shape):
     ("chunk_kv 0", ValueError, "chunk_kv"),
     ("non-contiguous", ValueError, "contiguous"),
     ("window", NotImplementedError, "sliding-window"),
-    ("G > 128", ValueError, "heads per kv head"),
+    ("H not a multiple of K", ValueError, "heads per kv head"),
     ("misaligned bf16", ValueError, "aligned"),
+    ("misaligned float32", ValueError, "aligned"),
 ])
 def test_route_rejects_what_the_kernels_do_not_take(case, error, match):
     q = torch.zeros((1, 8, 4, 64))
@@ -200,12 +234,13 @@ def test_route_rejects_what_the_kernels_do_not_take(case, error, match):
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     elif case == "window":
         kw = {"window": 4}
-    elif case == "G > 128":
-        q = torch.zeros((1, 8, 129, 64))
-        k = v = torch.zeros((1, 8, 1, 64))
+    elif case == "H not a multiple of K":
+        q = torch.zeros((1, 8, 5, 64))
     elif case == "misaligned bf16":
-        q = _misaligned_bf16((1, 8, 4, 64))
+        q = _misaligned(torch.bfloat16, (1, 8, 4, 64))
         k = v = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    elif case == "misaligned float32":
+        k = v = _misaligned(torch.float32, (1, 8, 2, 64))
     with pytest.raises(error, match=match):
         kernel.route(q, k, v, **kw)
 

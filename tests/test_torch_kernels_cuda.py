@@ -412,6 +412,75 @@ def test_flash_attention_tc_is_deterministic(cuda, shape):
     assert torch.equal(first, second)
 
 
+# the float32 kernel at the full-width float32 serve's four prefill shapes
+# and at hd = 128 (llama3.2-3b widths) over several key tiles
+F32_FULL_WIDTH = [(2, 128, 128, 32, 8, 64, 0, None),
+                  (2, 256, 256, 32, 8, 64, 0, None),
+                  (2, 512, 512, 32, 8, 64, 0, None),
+                  (2, 1024, 1024, 32, 8, 64, 0, None),
+                  (2, 256, 256, 24, 8, 128, 0, None),
+                  (1, 1024, 1024, 24, 8, 128, 0, None),
+                  (1, 200, 300, 16, 2, 128, 100, 290)]
+
+
+def _f32_inputs(shape, device, seed):
+    B, Sq, Skv, H, K, hd = shape[:6]
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                 device=device)
+                 for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+
+
+@pytest.mark.parametrize("shape", F32_FULL_WIDTH, ids=str)
+def test_flash_attention_f32_full_width(cuda, shape):
+    """The float32 kernel against the plain version at the serve's schedule
+    (one 1024-key chunk) and at its own (one refresh per F32_KEY_TILE
+    keys), within the float32 limit, one launch per call."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        F32_KEY_TILE, flash_attention_fwd, flash_attention_plain)
+    off, kv_len = shape[6], shape[7]
+    q, k, v = _f32_inputs(shape, cuda, shape[1] + shape[5])
+    before = _flash_counts()
+    got = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
+    assert _one_launch_of(torch.float32, before)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for chunk_kv in (1024, F32_KEY_TILE):
+        want = flash_attention_plain(q, k, v, q_offset=off, kv_len=kv_len,
+                                     chunk_kv=chunk_kv)
+        assert float((got - want).abs().max()) <= FLASH_ATOL[torch.float32]
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 1024, 32, 8, 64, 0, None),
+                                   (1, 96, 96, 32, 8, 64, 0, None),
+                                   (2, 256, 256, 24, 8, 128, 0, None),
+                                   (1, 96, 128, 8, 2, 32, 0, 77)], ids=str)
+def test_flash_attention_f32_is_deterministic(cuda, shape):
+    """Two launches of the float32 kernel on the same inputs give the same
+    bits: no atomics, a fixed order of sums."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    off, kv_len = shape[6], shape[7]
+    q, k, v = _f32_inputs(shape, cuda, shape[1] + shape[3])
+    before = _flash_counts()
+    first = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
+    second = flash_attention_fwd(q, k, v, off, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _flash_counts()[torch.float32] == before[torch.float32] + 2
+    assert torch.equal(first, second)
+
+
+def test_flash_attention_f32_does_not_spill(cuda):
+    """ptxas reports no spill bytes for any instantiation of the float32
+    kernel (hd = 16, 32, 64 and 128)."""
+    from repro_torch.kernels import build
+    log = build.build_all(["flash_attention"])["flash_attention"] \
+        .with_suffix(".log")
+    spills = [line for line in log.read_text().splitlines()
+              if "spill" in line]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line
+                          for line in spills), spills
+
+
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     q = torch.zeros((1, 8, 4, 64), device=cuda)

@@ -37,7 +37,24 @@ Phases:
   7. drive the array path, a 200-step selected-row write of a 512x512
      gain-cell array through the array-step kernel, counted, with the
      write-physics checks and the CPU plain run;
-  8. drive the serving path: `llama3.2-1b` at full width in bf16 with
+  8. drive the match path, the paper's Fig-10 flow through the query
+     API: `Session(device="cuda").run(MatchQuery(...))` with the six
+     demands of benchmarks/bench_codesign.py and the default transient
+     sweep (96 points, 300 steps, f64, solver "pallas"), with the counters
+     set to 0 just before it: one scan launch per topology group, no
+     one-step launch, one analytic batch, one transient run and one shmoo
+     in the executor's statistics; the result held to the port's CPU run
+     of the same query (on phase 4's CPU characterization): analytic
+     fields 1e-12, retention fields 2e-6, t_cell 1e-9, the shmoo grid,
+     banks_needed and each row's bank equal (a verdict may differ only
+     within tolerance of its threshold, with its margin printed); a fresh
+     session on an artifact store another session wrote launches nothing
+     and gives equal results; the same query again is a result-cache hit
+     with no launch; `CompileQuery(simulate=True, solver="pallas")` at
+     gc2t_nn 16x64 takes 1800 Gauss-Jordan launches and equals phase 6's
+     report; then the warm walls (median of 5) of the match, of the
+     analytic 96-point `SweepQuery()` and of the 4 x 96 vdd lattice;
+  9. drive the serving path: `llama3.2-1b` at full width in bf16 with
      seeded weights, 16 requests (prompts of 128-1024 tokens, 64 new
      tokens each, half greedy, half top-k sampled) through
      `ServeEngine(n_slots=8, window=2048, decode_chunk=8)`, counted: every
@@ -58,7 +75,7 @@ Phases:
      logit; then 2-layer full-width float32 greedy streams on the card
      against the CPU, counted: every prefill attention goes through the
      float32 flash-attention kernel;
-  9. time the fused Newton scan kernel (per launch and per step, by CUDA
+  10. time the fused Newton scan kernel (per launch and per step, by CUDA
      events and the profiler's device time), its plain version, its bound
      and its dependent chain, and the one-step entry; the Gauss-Jordan
      kernels (warp kernel at B = 1 and 4096, N = 13, with its dependent
@@ -71,8 +88,10 @@ Phases:
      two), their plain versions,
      their bounds and the library calls (`torch.linalg.solve_ex` and
      `torch.linalg.solve`; `scaled_dot_product_attention` in the same
-     call), and the warm compile and `run_batch` walls;
- 10. print a {"kernels": [...]} JSON line, the card line, and as the last
+     call), and the warm compile and `run_batch` walls; then one warm
+     match under the profiler: the device's idle share and the share of
+     device time in the scan launches;
+ 11. print a {"kernels": [...]} JSON line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line is printed. Without a CUDA
@@ -85,6 +104,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -173,6 +193,27 @@ GC_TRANSCENDENTALS = 64
 # test's limit against the reference (tests/test_torch_compiler.py)
 RET_RTOL = 2e-6
 WRITE_STEPS, WRITE_ATOL = 200, 1e-4     # 200-step write, card vs CPU
+
+# -- the match path: `Session.run(MatchQuery)`, the paper's Fig-10 flow
+# the six demands of benchmarks/bench_codesign.py (name, level, read Hz,
+# lifetime s, capacity bits): native-retention passes, refresh-only
+# passes, frequency-infeasible, capacity-driven sizing
+MATCH_DEMANDS = (("act-l1", "L1", 3.0e8, 2.0e-6, 0),
+                 ("act-l1-fast", "L1", 1.2e9, 5.0e-7, 0),
+                 ("kv-l2", "L2", 8.0e8, 1.0e-3, 1 << 20),
+                 ("stream-l2", "L2", 2.5e9, 1.0e-5, 0),
+                 ("weights-l2", "L2", 2.0e8, 3600.0, 1 << 22),
+                 ("hopeless", "L2", 5.0e10, 1.0, 0))
+# the match's analytic fields, card vs CPU, relative: float64 +, x, / by
+# tensors and exact ceil and powers of 4, so bit equality is expected;
+# the retention-dependent ones (float32 on the device) take RET_RTOL and
+# t_cell T_CELL_RTOL_F64
+MATCH_RTOL = 1e-12
+MATCH_ANALYTIC = ("area_um2", "f_max_hz", "read_bw_bps", "write_bw_bps",
+                  "eff_bw_bps", "leakage_w", "t_read_s", "t_write_s")
+MATCH_RETENTION = ("retention_s", "refresh_w", "standby_w")
+MATCH_REPS = 5              # warm walls: the median of this many runs
+VDD_LADDER = (0.7, 0.85, 1.0, 1.15)
 
 # H100 SXM data-sheet peaks: HBM bytes/s, FP64 and FP32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -525,7 +566,8 @@ def compile_path(dev) -> dict:
     from repro_torch.kernels.batched_solve import fused
     from repro_torch.kernels.batched_solve.kernel import batched_solve
     per_compile = READ_STEPS * NEWTON_ITERS
-    out = {"launches": 0, "first_s": {}, "t_cell": {}, "retention": {}}
+    out = {"launches": 0, "first_s": {}, "t_cell": {}, "retention": {},
+           "summary": {}}
     for cell in COMPILE_CELLS:
         for ws, nw in COMPILE_SIZES:
             cfg = BankConfig(ws, nw, cell=cell)
@@ -556,6 +598,7 @@ def compile_path(dev) -> dict:
             out["first_s"][(cell, ws, nw)] = wall
             out["t_cell"][(cell, ws, nw)] = t
             out["retention"][(cell, ws, nw)] = rep.retention.as_dict()
+            out["summary"][(cell, ws, nw)] = rep.summary()
     batched_solve.launches = 0
     rep = compile_bank(BankConfig(16, 16, cell="sram6t"), simulate=True,
                        solver="pallas", device="cuda")
@@ -690,6 +733,254 @@ def write_path() -> int:
     if not ok:
         raise RuntimeError("array path")
     return n
+
+
+def rel_err(got: float, want: float) -> float:
+    """|got - want| / |want|; 0 where they are equal (infinities too)."""
+    if got == want:
+        return 0.0
+    return abs(got - want) / abs(want) if want else math.inf
+
+
+def match_query():
+    from repro_torch.api import MatchQuery
+    from repro_torch.core.dse import Demand
+    return MatchQuery(tuple(Demand(*d) for d in MATCH_DEMANDS))
+
+
+def reset_scan_counts() -> None:
+    from repro_torch.kernels.batched_solve import fused
+    fused.fused_newton.launches = 0
+    fused.fused_newton_scan.launches = 0
+
+
+def verdict_margin(dp, d) -> tuple:
+    """The relative distance of each quantity `dse.feasible` compares to
+    its threshold, with the tolerance it is held to card vs CPU."""
+    out = [(rel_err(dp.f_max_hz, d.read_freq_hz), MATCH_RTOL)]
+    if dp.retention_s > 0:
+        out.append((rel_err(dp.retention_s, d.lifetime_s), RET_RTOL))
+        out.append((rel_err(dp.cfg.num_words / dp.retention_s,
+                            0.1 * dp.f_max_hz), RET_RTOL))
+    return min(out)
+
+
+def hold_match(got, want, q) -> dict:
+    """The card's match result against the CPU's: the lattice's fields,
+    t_cell, the shmoo grid, banks_needed and every row's chosen bank.
+    A verdict may differ only where its deciding quantity lies within its
+    tolerance of the threshold; that demand's sizing may then differ."""
+    worst = {"analytic": 0.0, "retention": 0.0, "t_cell": 0.0}
+    for g, w in zip(got.table.points, want.table.points):
+        if g.cfg != w.cfg or g.swing_ok != w.swing_ok:
+            raise RuntimeError(f"match path: point {w.cfg} differs")
+        for f in MATCH_ANALYTIC:
+            worst["analytic"] = max(worst["analytic"],
+                                    rel_err(getattr(g, f), getattr(w, f)))
+        for f in MATCH_RETENTION:
+            worst["retention"] = max(worst["retention"],
+                                     rel_err(getattr(g, f), getattr(w, f)))
+    for g, w in zip(got.table.transient, want.table.transient):
+        worst["t_cell"] = max(worst["t_cell"], rel_err(g.t_cell_s,
+                                                       w.t_cell_s))
+    log(f"match card vs CPU: analytic fields max rel {worst['analytic']!r} "
+        f"(limit {MATCH_RTOL}), retention fields {worst['retention']!r} "
+        f"(limit {RET_RTOL}), t_cell {worst['t_cell']!r} (limit "
+        f"{T_CELL_RTOL_F64})")
+    if worst["analytic"] > MATCH_RTOL or worst["retention"] > RET_RTOL \
+            or worst["t_cell"] > T_CELL_RTOL_F64:
+        raise RuntimeError("match path card vs CPU fields")
+    points = {f"{p.cfg.cell}/{p.cfg.word_size}x{p.cfg.num_words}"
+              + ("+ls" if p.cfg.wwlls else ""): p for p in want.table}
+    demands = {f"{d.level}:{d.name}": d for d in q.demands}
+    flipped = set()
+    for dk, row in want.grid.items():
+        for pk, verdict in row.items():
+            if got.grid[dk][pk] == verdict:
+                continue
+            margin, tol = verdict_margin(points[pk], demands[dk])
+            log(f"match verdict {dk} x {pk}: card {got.grid[dk][pk]}, CPU "
+                f"{verdict}, margin {margin!r} (tolerance {tol})")
+            if margin > tol:
+                raise RuntimeError("match path verdict differs")
+            flipped.add(dk)
+    for g, w in zip(got.rows, want.rows):
+        if w["demand"] in flipped:
+            continue
+        gb, wb = g["bank"], w["bank"]
+        same = (g["banks_needed"] == w["banks_needed"]
+                and g["n_feasible"] == w["n_feasible"]
+                and g["macro_feasible"] == w["macro_feasible"]
+                and (gb is None) == (wb is None)
+                and (gb is None or all(gb[k] == wb[k] for k in (
+                    "cell", "word_size", "num_words", "wwlls"))))
+        if not same or got.banks_needed[w["demand"]] != \
+                want.banks_needed[w["demand"]]:
+            raise RuntimeError(f"match path row {w['demand']} differs")
+    log(f"match card vs CPU: " + (
+        f"verdicts of {len(flipped)} demand(s) differ, each within "
+        f"tolerance of its threshold" if flipped else
+        "grid, banks_needed and rows equal")
+        + f"; banks_needed {got.banks_needed}; pass rate "
+        f"{got.pass_rate!r}")
+    return worst
+
+
+def match_path(cfgs, cpu_chars, n_groups, compiled, card) -> dict:
+    """The match path through the query API, counted: one cold
+    `MatchQuery` on the card, held to the port's CPU run of the same
+    query (on phase 4's CPU characterization); a store round trip and a
+    result-cache hit with no launch; a `CompileQuery` held to phase 6's
+    report."""
+    from repro_torch.api import CompileQuery, Session
+    from repro_torch.core.bank import BankConfig
+    from repro_torch.kernels.batched_solve import fused
+    from repro_torch.kernels.batched_solve.kernel import batched_solve
+    q = match_query()
+    sess = Session(device="cuda")
+    reset_scan_counts()
+    t0 = time.perf_counter()
+    got = sess.run(q)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fused.fused_newton_scan.launches
+    st = dict(sess.executor.stats)
+    log(f"match path: MatchQuery({len(q.demands)} demands, default "
+        f"transient sweep of {len(got.table)} points) on the card in "
+        f"{first_s:.2f} s (cold session), fused_newton_scan launches "
+        f"{launches}, one-step launches {fused.fused_newton.launches}; "
+        f"executor stats {st}")
+    if launches != n_groups or fused.fused_newton.launches != 0 \
+            or st.get("eval_batch_calls") != 1 \
+            or st.get("char_calls") != 1 or st.get("shmoo_calls") != 1:
+        raise RuntimeError("match path launch count or executor stats")
+    # the CPU run of the same query takes phase 4's CPU characterization
+    # as its session's transient cache, so its transient node runs nothing
+    cpu = Session(device="cpu")
+    mode = (q.sweep.sim_steps, q.sweep.solver, q.sweep.precision,
+            "modeled")
+    for cfg, ch in zip(cfgs, cpu_chars):
+        cpu._tchars[(cpu._key(cfg),) + mode] = ch
+    want = cpu.run(q)
+    if cpu.executor.stats["char_calls"] != 0:
+        raise RuntimeError("match path: the CPU run characterized again")
+    worst = hold_match(got, want, q)
+
+    # the artifact store: a fresh session on a store written by another
+    # launches nothing and gives equal results; then a result-cache hit
+    store = ROOT / "build" / "smoke_store"
+    shutil.rmtree(store, ignore_errors=True)
+    try:
+        reset_scan_counts()
+        first = Session(store=store, device="cuda").run(q)
+        n_first = fused.fused_newton_scan.launches
+        reset_scan_counts()
+        second_s = Session(store=store, device="cuda")
+        second = second_s.run(q)
+        n_second = fused.fused_newton_scan.launches
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    same = (second.as_dict() == first.as_dict()
+            and second.table.as_dict() == first.table.as_dict())
+    log(f"match path store: first session {n_first} scan launches, second "
+        f"session on the same store {n_second} (store hits "
+        f"{second_s.executor.stats['store_hits']}), results equal {same}; "
+        f"equal to the cold run {first.as_dict() == got.as_dict()}")
+    if n_second != 0 or not same:
+        raise RuntimeError("match path store round trip")
+    reset_scan_counts()
+    hits = sess.executor.stats["result_cache_hits"]
+    again = sess.run(q)
+    log(f"match path: the same query again in the first session: "
+        f"{fused.fused_newton_scan.launches} scan launches, result-cache "
+        f"hits {hits} -> {sess.executor.stats['result_cache_hits']}, same "
+        f"object {again is got}")
+    if again is not got or fused.fused_newton_scan.launches != 0:
+        raise RuntimeError("match path result cache")
+
+    # a compile through the API, against phase 6's compile_bank report
+    key = ("gc2t_nn", 16, 64)
+    batched_solve.launches = 0
+    rep = Session(device="cuda").run(CompileQuery(
+        BankConfig(key[1], key[2], cell=key[0]), simulate=True,
+        solver="pallas"))
+    torch.cuda.synchronize()
+    n_gj = batched_solve.launches
+    equal = rep.summary() == compiled["summary"][key]
+    log(f"match path: CompileQuery {key[0]} {key[1]}x{key[2]} pallas on the "
+        f"card: gauss_jordan launches {n_gj} (expected "
+        f"{compiled['launches'] // len(compiled['t_cell'])}), report equal "
+        f"to compile_bank's {equal}")
+    if not equal or n_gj != compiled["launches"] // len(compiled["t_cell"]):
+        raise RuntimeError("match path CompileQuery")
+    return {"launches": launches, "first_s": first_s, "worst": worst}
+
+
+def time_match(cfgs, card) -> dict:
+    """Warm walls (kernels built, caches warm, a fresh session each run):
+    the match, the analytic 96-point sweep and the 4 x 96 vdd lattice."""
+    from repro_torch.api import Session, SweepQuery
+    from repro_torch.core.dse_batch import evaluate_vdd_lattice
+    q = match_query()
+    evaluate_vdd_lattice(cfgs, VDD_LADDER, device="cuda")
+    runs = {"match": lambda: Session(device="cuda").run(q),
+            "analytic sweep": lambda: Session(device="cuda").run(
+                SweepQuery()),
+            "vdd lattice 4 x 96": lambda: evaluate_vdd_lattice(
+                cfgs, VDD_LADDER, device="cuda")}
+    out = {}
+    for label, fn in runs.items():
+        walls = []
+        for _ in range(MATCH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[label] = statistics.median(walls)
+        log(f"time {label} warm: {', '.join(repr(w) for w in walls)} s, "
+            f"median {out[label]!r} s [{card}]")
+    return out
+
+
+def profile_match(n_groups, card) -> dict:
+    """One warm match in a fresh session under torch.profiler: device
+    busy time (kernels by name, device-side events only) over the wall
+    time under the profiler, and the share of it in the scan launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Session
+    q = match_query()
+    Session(device="cuda").run(q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        Session(device="cuda").run(q)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = scan_ms = 0.0
+    scans = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        busy_ms += ms
+        if "fused_newton_kernel" in ev.key:
+            scan_ms += ms
+            scans += ev.count
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms, "scan_ms": scan_ms,
+           "scan_share": scan_ms / busy_ms if busy_ms else None,
+           "scan_launches": scans}
+    log(f"profile match (warm, fresh session): wall {wall_ms!r} ms under the "
+        f"profiler, device busy {busy_ms!r} ms, idle share "
+        f"{out['idle_share']!r}; {scans} scan launches {scan_ms!r} ms, "
+        f"{out['scan_share']!r} of device time [{card}]")
+    if busy_ms <= 0 or scans != n_groups:
+        raise RuntimeError("profile match: no device time or scan launches")
+    return out
 
 
 def max_sm_clock_hz() -> float:
@@ -1535,7 +1826,7 @@ def main() -> int:
             log("FAILED: anchor")
             return 1
 
-    # -- 5. the warm lattice wall (the kernels are timed in phase 9:
+    # -- 5. the warm lattice wall (the kernels are timed in phase 10:
     # kernel launches run slower after a profiler session)
     walls = []
     for _ in range(3):
@@ -1555,7 +1846,12 @@ def main() -> int:
     # -- 7. the array path, counted
     write_launches = write_path()
 
-    # -- 8. the serving path at full width, counted, and the card against
+    # -- 8. the match path through the query API, counted, held to the
+    # CPU, then its warm walls (before any profiler session)
+    matched = match_path(cfgs, cpu, n_groups, compiled, card)
+    time_match(cfgs, card)
+
+    # -- 9. the serving path at full width, counted, and the card against
     # the CPU at full width and reduced depth
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1573,7 +1869,7 @@ def main() -> int:
     served_f32 = serve_path_f32(dev, card)
     parity_launches = serve_cpu_parity(dev)
 
-    # -- 9. timing of the new paths and kernels, on the card (the walls
+    # -- 10. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
     time_paths(card)
     scan_t = time_scan(dev, group, banks, card)
@@ -1604,8 +1900,9 @@ def main() -> int:
             f"({bound_by}) [{card}]")
     new_times = time_new_kernels(dev, card)
     fa_times = time_flash(dev, card)
+    profile_match(n_groups, card)
 
-    # -- 10. summary lines
+    # -- 11. summary lines
     t16 = timings["B=16"]
     gj = new_times["gauss_jordan B=1"]
     gj_block = new_times["gauss_jordan block"]
@@ -1668,7 +1965,7 @@ def main() -> int:
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"]}]
     if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0 \
-            or parity_launches <= 0 or any(
+            or parity_launches <= 0 or matched["launches"] <= 0 or any(
                 s["launches"] != s["n_layers"] * s["prefills"]
                 for s in (served, served_f32)):
         log("FAILED: a kernel of a path was never launched")

@@ -18,10 +18,10 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
-from repro_torch._deferred import deferred
 from repro_torch.core import power as power_mod
 from repro_torch.core import retention as ret_mod
 from repro_torch.core import timing as timing_mod
@@ -115,5 +115,18 @@ def compile_bank(cfg: BankConfig, *, simulate: bool = False,
     return Report(cfg, bank, t, p, ret, t_sim, netlists)
 
 
-# The reference's deprecated facade runs through `repro.api.Session`.
-GCRAMCompiler = deferred("compiler.GCRAMCompiler", "Queue 1 item 9 (API)")
+class GCRAMCompiler:
+    """DEPRECATED facade; use repro_torch.api.Session().compile(...)."""
+
+    def __init__(self, cfg: BankConfig):
+        self.cfg = cfg
+
+    def compile(self, *, simulate: bool = False, solver: str = "jnp",
+                device="cuda") -> Report:
+        warnings.warn(
+            "GCRAMCompiler is deprecated; use repro_torch.api.Session()"
+            ".compile(cfg) or Session().run(CompileQuery(cfg))",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.api import Session
+        return Session(self.cfg.tech, device=device).compile(
+            self.cfg, simulate=simulate, solver=solver)

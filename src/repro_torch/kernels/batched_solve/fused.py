@@ -126,19 +126,21 @@ def fused_newton(spec: FusedSpec, pre, Krhs, params, v0, *,
     `fused_newton.launches`."""
     if not v0.is_cuda:
         return newton_solve_fixed(spec, pre, Krhs, params, v0, iters, tol)
+    if v0.device.index != torch.cuda.current_device():
+        with torch.cuda.device(v0.device):
+            return fused_newton(spec, pre, Krhs, params, v0, iters=iters,
+                                tol=tol)
     B, n = _check_lane_operands(spec, pre, params, v0)
     sdt, cdt = spec.dtypes
     _check("Krhs", Krhs, (B, n), cdt, v0.device)
     lib = _lib()
     out = torch.empty_like(v0)
-    stream = torch.cuda.current_stream(v0.device).cuda_stream
-    with torch.cuda.device(v0.device):
-        rc = lib.fused_newton_launch(
-            int(sdt == torch.float64), int(cdt == torch.float64), spec.n_dev,
-            B, n, int(iters), float(tol), Krhs.data_ptr(), v0.data_ptr(),
-            params.data_ptr(), pre["KU"].data_ptr(), pre["Sb"].data_ptr(),
-            pre["KPa"].data_ptr(), pre["KPg"].data_ptr(), out.data_ptr(),
-            _terminals(spec), stream)
+    rc = lib.fused_newton_launch(
+        int(sdt == torch.float64), int(cdt == torch.float64), spec.n_dev,
+        B, n, int(iters), float(tol), Krhs.data_ptr(), v0.data_ptr(),
+        params.data_ptr(), pre["KU"].data_ptr(), pre["Sb"].data_ptr(),
+        pre["KPa"].data_ptr(), pre["KPg"].data_ptr(), out.data_ptr(),
+        _terminals(spec), build.raw_stream(v0.device.index))
     _raise_on(lib, rc, "fused_newton")
     fused_newton.launches += 1
     return out
@@ -177,6 +179,10 @@ def fused_newton_scan(spec: FusedSpec, pre, Ksrc, params, v0, *,
     if not v0.is_cuda:
         return fused_newton_scan_plain(spec, pre, Ksrc, params, v0, iters,
                                        tol)
+    if v0.device.index != torch.cuda.current_device():
+        with torch.cuda.device(v0.device):
+            return fused_newton_scan(spec, pre, Ksrc, params, v0,
+                                     iters=iters, tol=tol)
     B, n = _check_lane_operands(spec, pre, params, v0)
     sdt, cdt = spec.dtypes
     T = Ksrc.shape[0] if Ksrc.dim() == 3 else 0
@@ -187,15 +193,13 @@ def fused_newton_scan(spec: FusedSpec, pre, Ksrc, params, v0, *,
     _check("KCoh", pre["KCoh"], (B, n, n), cdt, v0.device)
     lib = _lib()
     vs = torch.empty((B, T, n), dtype=sdt, device=v0.device)
-    stream = torch.cuda.current_stream(v0.device).cuda_stream
-    with torch.cuda.device(v0.device):
-        rc = lib.fused_newton_scan_launch(
-            int(sdt == torch.float64), int(cdt == torch.float64), spec.n_dev,
-            B, T, n, int(iters), float(tol), Ksrc.data_ptr(),
-            pre["KCoh"].data_ptr(), v0.data_ptr(), params.data_ptr(),
-            pre["KU"].data_ptr(), pre["Sb"].data_ptr(),
-            pre["KPa"].data_ptr(), pre["KPg"].data_ptr(), vs.data_ptr(),
-            _terminals(spec), stream)
+    rc = lib.fused_newton_scan_launch(
+        int(sdt == torch.float64), int(cdt == torch.float64), spec.n_dev,
+        B, T, n, int(iters), float(tol), Ksrc.data_ptr(),
+        pre["KCoh"].data_ptr(), v0.data_ptr(), params.data_ptr(),
+        pre["KU"].data_ptr(), pre["Sb"].data_ptr(),
+        pre["KPa"].data_ptr(), pre["KPg"].data_ptr(), vs.data_ptr(),
+        _terminals(spec), build.raw_stream(v0.device.index))
     _raise_on(lib, rc, "fused_newton_scan")
     fused_newton_scan.launches += 1
     return vs

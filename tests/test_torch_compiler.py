@@ -251,8 +251,13 @@ def test_simulate_read_hits_the_lattice_anchors():
 
 
 def test_gcram_compiler_is_deferred():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        compiler.GCRAMCompiler(bank.BankConfig())
+    """The deprecated facade, ported with the query API, warns and
+    delegates to `api.Session.compile` on its device."""
+    with pytest.warns(DeprecationWarning, match="GCRAMCompiler"):
+        rep = compiler.GCRAMCompiler(bank.BankConfig(16, 16)).compile(
+            device="cpu")
+    assert rep.summary() == compiler.compile_bank(
+        bank.BankConfig(16, 16), device="cpu").summary()
     ckt, _ = timing.read_netlist(bank.build_bank(bank.BankConfig(16, 16)))
     ref_ckt, _ = ref_timing.read_netlist(
         ref_bank.build_bank(ref_bank.BankConfig(16, 16)))

@@ -129,8 +129,7 @@ def test_interop_round_trips_reference_configs():
 
 
 def test_deferred_parts_name_their_roadmap_item():
-    from repro_torch.core import compiler
-    for fn in (compiler.GCRAMCompiler, cells.v_sn_written_t, dse.evaluate):
+    for fn in (dse.grad_optimize, cells.v_sn_written_t, dse.evaluate_grad):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
     b = bank.build_bank(bank.BankConfig(16, 16))

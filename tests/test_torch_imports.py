@@ -42,7 +42,11 @@ def test_port_has_modules():
                  "models/attention.py", "models/transformer.py",
                  "models/model.py", "serving/engine.py",
                  "serving/sampling.py", "runtime/telemetry.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "core/dse.py", "core/dse_batch.py",
+                 "core/dse_grad.py", "core/multibank.py",
+                 "api/__init__.py", "api/queries.py", "api/results.py",
+                 "api/store.py", "api/leases.py", "api/plan.py",
+                 "api/executor.py", "api/session.py"):
         assert need in names
     for src in ("fused_newton", "gauss_jordan", "gc_array_step",
                 "flash_attention", "flash_attention_tc"):

@@ -54,7 +54,27 @@ Phases:
      gc2t_nn 16x64 takes 1800 Gauss-Jordan launches and equals phase 6's
      report; then the warm walls (median of 5) of the match, of the
      analytic 96-point `SweepQuery()` and of the 4 x 96 vdd lattice;
-  9. drive the serving path: `llama3.2-1b` at full width in bf16 with
+  9. drive the layout path, `Session(device="cuda").run(SweepQuery(
+     fidelity="layout"))` over the default 96-point lattice (300 steps,
+     f64, solver "pallas"), with the counters set to 0 just before it:
+     one scan launch per topology group and no one-step launch, 96
+     geometry verifications, every report clean (DRC, LVS, extraction
+     bit-identical) and equal to the port's CPU run of the same query,
+     t_cell within 1e-9 of that run and above phase 4's hand-modeled
+     t_cell at every point (the gap's minimum and maximum printed); a
+     fresh session on the store the first wrote rebuilds no geometry and
+     launches nothing; `timing.analyze(parasitics="extracted")` at
+     gc2t_nn 16x64 equals the sweeps' analytic estimate; the warm wall of
+     the layout sweep (median of 5, a fresh session each run) split into
+     geometry verification on the host and the transient tier; then the
+     sparse-LU engine, `SweepQuery(fidelity="transient",
+     solver="sparse")` over the same lattice once: no scan launch,
+     t_cell within 1e-9 of phase 4's (the gap printed per topology) and
+     of the port's CPU run of the same query, its wall, and one step and
+     one Newton iteration of one group under a dispatch counter (every
+     operation on the card but the lifts of host inputs; torch
+     operations per iteration);
+ 10. drive the serving path: `llama3.2-1b` at full width in bf16 with
      seeded weights, 16 requests (prompts of 128-1024 tokens, 64 new
      tokens each, half greedy, half top-k sampled) through
      `ServeEngine(n_slots=8, window=2048, decode_chunk=8)`, counted: every
@@ -75,7 +95,7 @@ Phases:
      logit; then 2-layer full-width float32 greedy streams on the card
      against the CPU, counted: every prefill attention goes through the
      float32 flash-attention kernel;
-  10. time the fused Newton scan kernel (per launch and per step, by CUDA
+  11. time the fused Newton scan kernel (per launch and per step, by CUDA
      events and the profiler's device time), its plain version, its bound
      and its dependent chain, and the one-step entry; the Gauss-Jordan
      kernels (warp kernel at B = 1 and 4096, N = 13, with its dependent
@@ -90,8 +110,9 @@ Phases:
      `torch.linalg.solve`; `scaled_dot_product_attention` in the same
      call), and the warm compile and `run_batch` walls; then one warm
      match under the profiler: the device's idle share and the share of
-     device time in the scan launches;
- 11. print a {"kernels": [...]} JSON line, the card line, and as the last
+     device time in the scan launches; one warm layout sweep under the
+     profiler: the device's idle share;
+ 12. print a {"kernels": [...]} JSON line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line is printed. Without a CUDA
@@ -214,6 +235,22 @@ MATCH_ANALYTIC = ("area_um2", "f_max_hz", "read_bw_bps", "write_bw_bps",
 MATCH_RETENTION = ("retention_s", "refresh_w", "standby_w")
 MATCH_REPS = 5              # warm walls: the median of this many runs
 VDD_LADDER = (0.7, 0.85, 1.0, 1.15)
+
+# -- the layout path (`SweepQuery(fidelity="layout")`) and the sparse engine
+LAYOUT_REPS = 5             # warm walls: the median of this many runs
+# layout-extracted vs hand-modeled t_cell, relative gap: positive at every
+# point (extraction adds rail rows, strip jogs and the via stack to the
+# read column); the reference measured 2.9-7.3% at 16x64 (CHANGES.md)
+# the sparse-LU engine on the card vs the fused engine (phase 4), t_cell
+# relative. The reference's engine contracts (sparse vs dense 6e-12, fused
+# vs dense 7e-12, benchmarks/bench_transient.py) hold on gc2t_nn 32x32; each
+# engine freezes a lane once its Newton update is under 1e-6 V, so two
+# engines' traces differ by up to that, and a slow read's crossing turns
+# it into time: on gc2t_osos 16x16 the reference's own sparse and fused
+# engines differ by 3.4e-10 (tests/test_torch_sparse.py). So the sparse
+# run is held to the fused one at the lattice's t_cell limit, 1e-9, with
+# the gap printed per topology, and to the port's CPU sparse run at 1e-9
+SPARSE_RTOL = 1e-9
 
 # H100 SXM data-sheet peaks: HBM bytes/s, FP64 and FP32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -943,14 +980,14 @@ def time_match(cfgs, card) -> dict:
     return out
 
 
-def profile_match(n_groups, card) -> dict:
-    """One warm match in a fresh session under torch.profiler: device
-    busy time (kernels by name, device-side events only) over the wall
-    time under the profiler, and the share of it in the scan launches."""
+def profile_query(q, label, n_groups, card) -> dict:
+    """One warm run of query `q` in a fresh session under torch.profiler:
+    device busy time (kernels by name, device-side events only) over the
+    wall time under the profiler, and the share of it in the scan
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import Session
-    q = match_query()
     Session(device="cuda").run(q)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -974,13 +1011,295 @@ def profile_match(n_groups, card) -> dict:
            "idle_share": 1.0 - busy_ms / wall_ms, "scan_ms": scan_ms,
            "scan_share": scan_ms / busy_ms if busy_ms else None,
            "scan_launches": scans}
-    log(f"profile match (warm, fresh session): wall {wall_ms!r} ms under the "
-        f"profiler, device busy {busy_ms!r} ms, idle share "
+    log(f"profile {label} (warm, fresh session): wall {wall_ms!r} ms under "
+        f"the profiler, device busy {busy_ms!r} ms, idle share "
         f"{out['idle_share']!r}; {scans} scan launches {scan_ms!r} ms, "
         f"{out['scan_share']!r} of device time [{card}]")
     if busy_ms <= 0 or scans != n_groups:
-        raise RuntimeError("profile match: no device time or scan launches")
+        raise RuntimeError(f"profile {label}: no device time or scan "
+                           f"launches")
     return out
+
+
+def layout_query():
+    from repro_torch.api import SweepQuery
+    return SweepQuery(fidelity="layout")
+
+
+def layout_path(cfgs, gpu_chars, n_groups) -> dict:
+    """The layout path through the query API, counted: the default
+    96-point layout sweep on the card (300 steps, f64, solver "pallas"),
+    held to the port's CPU run of the same query (geometry reports equal,
+    t_cell 1e-9) and to phase 4's hand-modeled t_cell (extracted above
+    modeled at every point); a fresh session on the store another wrote
+    replays it with no geometry rebuild and no launch;
+    `timing.analyze(parasitics="extracted")` at gc2t_nn 16x64."""
+    from repro_torch.api import Session
+    from repro_torch.core import timing
+    from repro_torch.core.bank import BankConfig, build_bank
+    from repro_torch.kernels.batched_solve import fused
+    q = layout_query()
+    store = ROOT / "build" / "smoke_layout_store"
+    shutil.rmtree(store, ignore_errors=True)
+    try:
+        sess = Session(store=store, device="cuda")
+        reset_scan_counts()
+        t0 = time.perf_counter()
+        got = sess.run(q)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = fused.fused_newton_scan.launches
+        steps = fused.fused_newton.launches
+        st = dict(sess.executor.stats)
+        log(f"layout path: SweepQuery(fidelity='layout') over "
+            f"{len(got)} points on the card in {first_s:.2f} s (cold "
+            f"session), fused_newton_scan launches {launches}, one-step "
+            f"launches {steps}; executor stats {st}")
+        summary = got.geometry_summary()
+        log(f"layout path geometry: {summary}")
+        if launches != n_groups or steps != 0 \
+                or st.get("geom_verifies") != len(cfgs) \
+                or st.get("char_calls") != 1:
+            raise RuntimeError("layout path launch count or executor stats")
+        if not (summary["all_clean"] and summary["n_verified"] == len(cfgs)
+                and summary["n_drc_clean"] == len(cfgs)
+                and summary["n_lvs_ok"] == len(cfgs)
+                and summary["n_extract_bit_identical"] == len(cfgs)):
+            raise RuntimeError("layout path: a geometry report is not clean")
+
+        # the port's CPU run of the same query
+        t0 = time.perf_counter()
+        cpu = Session(device="cpu").run(q)
+        cpu_s = time.perf_counter() - t0
+        t_card = np.array([c.t_cell_s for c in got.transient])
+        t_cpu = np.array([c.t_cell_s for c in cpu.transient])
+        t_mod = np.array([c.t_cell_s for c in gpu_chars])
+        same_geom = got.geometry == cpu.geometry
+        rel = float(np.max(np.abs(t_card - t_cpu) / np.abs(t_cpu)))
+        gap = (t_card - t_mod) / t_mod
+        log(f"layout card vs CPU (CPU run {cpu_s:.2f} s): geometry reports "
+            f"equal {same_geom}; t_cell max rel {rel!r} (limit "
+            f"{T_CELL_RTOL_F64}); extracted over modeled t_cell: min "
+            f"{float(gap.min())!r}, max {float(gap.max())!r}")
+        if not (np.isfinite(t_card).all() and (t_card > 0).all()) \
+                or not same_geom or rel > T_CELL_RTOL_F64 \
+                or not (gap > 0).all():
+            raise RuntimeError("layout path card vs CPU or vs modeled")
+
+        # a fresh session on the store replays it
+        reset_scan_counts()
+        s2 = Session(store=store, device="cuda")
+        again = s2.run(q)
+        st2 = dict(s2.executor.stats)
+        n2 = fused.fused_newton_scan.launches
+        equal = (again.geometry == got.geometry
+                 and [c.t_cell_s for c in again.transient] == list(t_card)
+                 and again.as_dict() == got.as_dict())
+        log(f"layout path store: second session {n2} scan launches, "
+            f"geometry verifies {st2.get('geom_verifies', 0)}, char calls "
+            f"{st2.get('char_calls', 0)}, store hits "
+            f"{st2.get('store_hits', 0)}; results equal {equal}")
+        if n2 != 0 or st2.get("geom_verifies", 0) != 0 \
+                or st2.get("char_calls", 0) != 0 or not equal:
+            raise RuntimeError("layout path store replay")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    # the analytic timing closure with extracted parasitics (host float64
+    # in both runs): its t_cell is the layout sweep's analytic estimate
+    cfg = BankConfig(16, 64, cell="gc2t_nn")
+    i = cfgs.index(cfg)
+    te = timing.analyze(build_bank(cfg), parasitics="extracted")
+    tm = timing.analyze(build_bank(cfg))
+    an_card = got.transient[i].t_cell_analytic_s
+    an_cpu = cpu.transient[i].t_cell_analytic_s
+    log(f"timing.analyze gc2t_nn 16x64 extracted: t_cell {te.t_cell_s!r} s "
+        f"(the card sweep's analytic estimate {an_card!r}, the CPU "
+        f"sweep's {an_cpu!r}), t_wl {te.t_wl_s!r} s, stages "
+        f"{te.delay_stages}, f_max {te.f_max_hz!r} Hz; modeled t_cell "
+        f"{tm.t_cell_s!r} s, stages {tm.delay_stages}")
+    if not (te.t_cell_s == an_card == an_cpu and te.t_cell_s > tm.t_cell_s
+            and te.t_wl_s > tm.t_wl_s
+            and te.delay_stages >= tm.delay_stages):
+        raise RuntimeError("timing.analyze(parasitics='extracted')")
+    return {"launches": launches, "first_s": first_s, "rel": rel,
+            "gap": (float(gap.min()), float(gap.max()))}
+
+
+def time_layout(card) -> dict:
+    """Warm wall of the layout sweep (a fresh session each run) and, in
+    the same runs, its split: the executor's geometry verification on
+    the host (its `verify_bank` calls) and its transient tier (its
+    `characterize` call, which ends in a copy to the host), each timed
+    by wrapping the function the executor calls."""
+    from repro_torch.api import Session
+    from repro_torch.core.spice import char_batch
+    from repro_torch.geom import verify
+    q = layout_query()
+    spans = {"geometry verification": 0.0, "transient tier": 0.0}
+
+    def timed(mod, name, label):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[label] += time.perf_counter() - t0
+        return fn, wrapper
+
+    patches = [(verify, "verify_bank", "geometry verification"),
+               (char_batch, "characterize", "transient tier")]
+    runs = {"layout sweep": [], "geometry verification": [],
+            "transient tier": []}
+    originals = []
+    try:
+        for mod, name, label in patches:
+            fn, wrapper = timed(mod, name, label)
+            originals.append((mod, name, fn))
+            setattr(mod, name, wrapper)
+        for _ in range(LAYOUT_REPS):
+            for k in spans:
+                spans[k] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Session(device="cuda").run(q)
+            torch.cuda.synchronize()
+            runs["layout sweep"].append(time.perf_counter() - t0)
+            for k, v in spans.items():
+                runs[k].append(v)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    out = {k: statistics.median(v) for k, v in runs.items()}
+    for label, walls in runs.items():
+        log(f"time {label} warm: {', '.join(repr(w) for w in walls)} s, "
+            f"median {out[label]!r} s [{card}]")
+    shares = [(g / w, t / w) for w, g, t in zip(*runs.values())]
+    rest = statistics.median(w - g - t for w, g, t in zip(*runs.values()))
+    log(f"time layout sweep split, per run (geometry, transient) shares of "
+        f"the wall: {shares!r}; the rest (planning, analytic tier, the "
+        f"executor) median {rest!r} s [{card}]")
+    if not all(g > 0 and t > 0 for g, t in shares):
+        raise RuntimeError("layout split: a span was not timed")
+    return out
+
+
+class OpCount:
+    """Counts the torch operations dispatched inside a `with` block and
+    the device types of the tensors they return. `aten.lift_fresh` (host
+    data, a numpy array or a list, entering torch before its copy to the
+    card) is counted apart, in `lifts`."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+        counter = self
+        self.n, self.lifts, self.devices = 0, 0, set()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func is torch.ops.aten.lift_fresh.default:
+                    counter.lifts += 1
+                    return out
+                counter.n += 1
+                counter.devices.update(
+                    t.device.type for t in tree_flatten(out)[0]
+                    if isinstance(t, torch.Tensor))
+                return out
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def sparse_path(cfgs, gpu_chars, card) -> dict:
+    """The sparse-LU engine on the card: `SweepQuery(fidelity=
+    "transient", solver="sparse")` over the 96-point lattice once, counted
+    (no scan launch), t_cell held to phase 4's fused-engine run and to
+    the port's CPU run; then one step of one topology group under a
+    dispatch counter: every operation but the lifts of host inputs
+    returns CUDA tensors; and the torch operations per Newton
+    iteration."""
+    from repro_torch.api import Session, SweepQuery
+    from repro_torch.core.bank import build_bank
+    from repro_torch.core.dse_batch import group_by_topology
+    from repro_torch.core.spice.char_batch import group_inputs
+    from repro_torch.kernels.batched_solve import fused
+    from repro_torch.kernels.batched_solve import sparse as sps
+    q = SweepQuery(fidelity="transient", solver="sparse")
+    reset_scan_counts()
+    sess = Session(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sess.run(q)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = fused.fused_newton_scan.launches + fused.fused_newton.launches
+    t_sp = np.array([c.t_cell_s for c in got.transient])
+    t_fu = np.array([c.t_cell_s for c in gpu_chars])
+    gap = np.abs(t_sp - t_fu) / np.abs(t_fu)
+    rel = float(gap.max())
+    log(f"sparse path: SweepQuery(solver='sparse') over {len(got)} points "
+        f"on the card in {wall_s!r} s (one run, the whole lattice), fused "
+        f"Newton launches {launches}; executor stats "
+        f"{dict(sess.executor.stats)}; t_cell vs phase 4's fused engine "
+        f"max rel {rel!r} (limit {SPARSE_RTOL}) [{card}]")
+    for idx in group_by_topology(cfgs).values():
+        c = cfgs[idx[0]]
+        log(f"  sparse vs fused, {c.cell} wwlls={c.wwlls} "
+            f"write_vt={c.write_vt}: max rel {float(gap[idx].max())!r}")
+    t0 = time.perf_counter()
+    cpu = Session(device="cpu").run(q)
+    cpu_s = time.perf_counter() - t0
+    t_cpu = np.array([c.t_cell_s for c in cpu.transient])
+    rel_cpu = float(np.max(np.abs(t_sp - t_cpu) / np.abs(t_cpu)))
+    log(f"sparse path card vs CPU (CPU run {cpu_s:.2f} s): t_cell max rel "
+        f"{rel_cpu!r} (limit {T_CELL_RTOL_F64})")
+    if launches != 0 or not (np.isfinite(t_sp).all() and (t_sp > 0).all()) \
+            or rel > SPARSE_RTOL or rel_cpu > T_CELL_RTOL_F64:
+        raise RuntimeError("sparse path launches or t_cell")
+
+    # one group's first step, and one Newton iteration, under the counter
+    idx = next(iter(group_by_topology(cfgs).values()))
+    group = [cfgs[i] for i in idx]
+    inp = group_inputs(group, [build_bank(c) for c in group], n_seg=8,
+                       n_steps=N_STEPS, solver="sparse", device="cuda")
+    tr = inp["tr"]
+    with OpCount() as step_ops:
+        res = tr.run_lattice(inp["wt"], inp["wv"], inp["t_end"], 1,
+                             over_batches=inp["over"], v0=inp["v0"])
+    spec = tr.spec
+    sdt, cdt = spec.dtypes
+    B = inp["over"]["G"].shape[0]
+    h = torch.as_tensor(inp["t_end"], dtype=torch.float64,
+                        device="cuda") / N_STEPS
+    gn = spec.sp.project_dense(inp["over"]["G"])
+    cn = spec.sp.project_dense(inp["over"]["C"])
+    j_const = sps.j_constant(spec, gn, cn, h)
+    v = inp["v0"].to(sdt).expand(B, spec.sp.n)
+    rhs = sps.coo_matvec(spec.sp, (cn / h[:, None]).to(cdt), v.to(cdt))
+    params = sps.pack_params(tr.system.dev, B, cdt)
+    done = torch.zeros((B,), dtype=torch.bool, device="cuda")
+    it = sps.make_newton_iter(spec, tr.tol)
+    with OpCount() as iter_ops:
+        it(j_const, rhs, params, v, done)
+    log(f"sparse path ops: one step of a {B}-lane group {step_ops.n} torch "
+        f"operations (devices {sorted(step_ops.devices)}; {step_ops.lifts} "
+        f"host arrays lifted into torch for the copy), one Newton "
+        f"iteration {iter_ops.n} (devices {sorted(iter_ops.devices)}); "
+        f"n = {spec.sp.n}, nnz = {spec.sp.nnz}, fill-in "
+        f"{spec.sched.nnz_f - spec.sched.nnz}")
+    if step_ops.devices != {"cuda"} or iter_ops.devices != {"cuda"} \
+            or not bool(torch.isfinite(res["all"]).all()):
+        raise RuntimeError("sparse path: an operation left the card")
+    return {"wall_s": wall_s, "rel": rel, "rel_cpu": rel_cpu,
+            "iter_ops": iter_ops.n, "step_ops": step_ops.n}
 
 
 def max_sm_clock_hz() -> float:
@@ -1826,7 +2145,7 @@ def main() -> int:
             log("FAILED: anchor")
             return 1
 
-    # -- 5. the warm lattice wall (the kernels are timed in phase 10:
+    # -- 5. the warm lattice wall (the kernels are timed in phase 11:
     # kernel launches run slower after a profiler session)
     walls = []
     for _ in range(3):
@@ -1851,7 +2170,14 @@ def main() -> int:
     matched = match_path(cfgs, cpu, n_groups, compiled, card)
     time_match(cfgs, card)
 
-    # -- 9. the serving path at full width, counted, and the card against
+    # -- 9. the layout path (counted, held to the CPU and to phase 4's
+    # modeled t_cell, replayed from a store), its warm walls and split;
+    # then the sparse-LU engine over the same lattice
+    layout_path(cfgs, gpu, n_groups)
+    time_layout(card)
+    sparse_path(cfgs, gpu, card)
+
+    # -- 10. the serving path at full width, counted, and the card against
     # the CPU at full width and reduced depth
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1869,7 +2195,7 @@ def main() -> int:
     served_f32 = serve_path_f32(dev, card)
     parity_launches = serve_cpu_parity(dev)
 
-    # -- 10. timing of the new paths and kernels, on the card (the walls
+    # -- 11. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
     time_paths(card)
     scan_t = time_scan(dev, group, banks, card)
@@ -1900,9 +2226,10 @@ def main() -> int:
             f"({bound_by}) [{card}]")
     new_times = time_new_kernels(dev, card)
     fa_times = time_flash(dev, card)
-    profile_match(n_groups, card)
+    profile_query(match_query(), "match", n_groups, card)
+    profile_query(layout_query(), "layout sweep", n_groups, card)
 
-    # -- 11. summary lines
+    # -- 12. summary lines
     t16 = timings["B=16"]
     gj = new_times["gauss_jordan B=1"]
     gj_block = new_times["gauss_jordan block"]

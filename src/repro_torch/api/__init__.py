@@ -35,9 +35,7 @@ survive process restarts; `Session(leases=True)` coordinates workers
 that share a store (`api.leases`).
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP
-item: `SweepQuery(fidelity="layout")` (item 10), `OptimizeQuery` (item
-11), `CoDesignQuery` (item 12) and the transient solver "sparse"
-(item 4).
+item: `OptimizeQuery` (item 11) and `CoDesignQuery` (item 12).
 """
 from repro_torch.api.executor import Executor, QueryFuture
 from repro_torch.api.leases import Lease, LeaseManager

@@ -37,8 +37,9 @@ primitives (`dse_batch.evaluate_batch`, `char_batch.characterize`,
 elementwise, so union batching cannot perturb any point's value —
 asserted in tests/test_torch_api.py.
 
-The `geom` node (layout tier) and the `optimize` node raise
-NotImplementedError naming ROADMAP Queue 1 items 10 and 11.
+The `geom` node (layout tier) verifies geometry on the host (numpy,
+`geom.verify.verify_bank`); the `optimize` node raises
+NotImplementedError naming ROADMAP Queue 1 item 11.
 
 Single-threaded by design: `flush()` (and therefore `Future.result()`
 on a pending future) runs the wave on the calling thread under a lock.
@@ -491,9 +492,25 @@ class Executor:
             self._store_put(n.key, lambda: plan_mod.encode_chars(s, chars))
             return chars
         if n.kind == "geom":
-            raise NotImplementedError(
-                "SweepQuery(fidelity='layout') is not ported to repro_torch "
-                "yet (ROADMAP Queue 1 item 10 (layout tier))")
+            n_seg = int(n.spec.get("n_seg", 8))
+            missing = [c for c in n.cfgs
+                       if (s._key(c), n_seg) not in s._geoms]
+            if missing:
+                reports = self._store_decode(n.key, plan_mod.decode_geoms)
+                if reports:
+                    for c, g in zip(n.cfgs, reports):
+                        s._geoms.setdefault((s._key(c), n_seg), g)
+                    missing = [c for c in missing
+                               if (s._key(c), n_seg) not in s._geoms]
+            if missing:
+                from repro_torch.geom import verify as geom_verify
+                self.stats["geom_verifies"] += len(missing)
+                for c in missing:
+                    s._geoms[(s._key(c), n_seg)] = \
+                        geom_verify.verify_bank(c, n_seg=n_seg)
+            geoms = [s._geoms[(s._key(c), n_seg)] for c in n.cfgs]
+            self._store_put(n.key, lambda: plan_mod.encode_geoms(s, geoms))
+            return geoms
         if n.kind == "vdd_lattice":
             return self.eval_vdd_lattice(n)
         if n.kind == "shmoo":

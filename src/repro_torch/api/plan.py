@@ -25,8 +25,8 @@ Evaluation knobs that cannot change the result (e.g. `batched`) stay
 OUT of the key and ride in `spec` instead.
 
 `CoDesignQuery` does not plan yet (its Profiles come from the workload
-profiler, ROADMAP Queue 1 item 12); the `geom` and `optimize` nodes
-raise when executed (items 10 and 11).
+profiler, ROADMAP Queue 1 item 12); the `optimize` node raises when
+executed (item 11).
 """
 from __future__ import annotations
 
@@ -387,6 +387,16 @@ def decode_chars(session, data) -> List[Optional[TransientChar]]:
     return [None if d is None else
             TransientChar(session._cfg_from_key(tuple(d["cfg"])),
                           *(d[f] for f in _CHAR_FIELDS)) for d in data]
+
+
+def encode_geoms(session, geoms) -> list:
+    """Geometry verification reports (`geom.verify.verify_bank`) are
+    already JSON-able dicts of ints/floats/bools/strings."""
+    return [None if g is None else dict(g) for g in geoms]
+
+
+def decode_geoms(session, data) -> list:
+    return [None if g is None else dict(g) for g in data]
 
 
 _VLAT_2D = ("f_max_hz", "t_read_s", "t_write_s", "retention_s",

@@ -11,9 +11,8 @@ lowered by the planner (`repro_torch.api.plan`) instead.
 
 Every query constructs and validates as in the reference. What the port
 does not run yet raises NotImplementedError naming its ROADMAP item when
-a Session plans or executes it: `OptimizeQuery` (item 11),
-`CoDesignQuery` (item 12), `SweepQuery(fidelity="layout")` (item 10)
-and `solver="sparse"` (item 4).
+a Session plans or executes it: `OptimizeQuery` (item 11) and
+`CoDesignQuery` (item 12).
 """
 from __future__ import annotations
 
@@ -62,8 +61,8 @@ class SweepQuery(Query):
                   Woodbury-Newton engine (prefactored K; on the card
                   one launch of the CUDA scan kernel per topology
                   group, its plain torch version on the CPU), "sparse"
-                  the fixed-pattern symbolic-LU engine (not ported
-                  yet, ROADMAP item 4), "jnp" the dense f64
+                  the fixed-pattern symbolic-LU engine (plain torch on
+                  the session's device), "jnp" the dense f64
                   reference. precision "f64" (default) | "mixed"
                   (f32 carried traces, f64 model + solve — passes the
                   1% scalar-parity contract) | "f32" (screening only).
@@ -75,7 +74,7 @@ class SweepQuery(Query):
                   and the result is a LayoutTable carrying the per-point
                   geometry verification reports alongside the transient
                   characterization. sim_steps/solver/precision apply as
-                  in "transient". Not ported yet (ROADMAP item 10).
+                  in "transient". Geometry is verified on the host.
     """
     cells: Tuple[str, ...] = ("gc2t_nn", "gc2t_np", "gc2t_osos")
     word_sizes: Tuple[int, ...] = (16, 32, 64, 128)

@@ -132,8 +132,7 @@ class LayoutTable(CalibratedTable):
     routed bank (manifest stats, DRC verdict, LVS-lite connectivity
     verdict, extracted read-column RC, scalar-vs-batched extraction
     bit-parity). `geometry_summary()` rolls the verdicts up — the
-    all-clean gate `tools/check_geom.py` enforces in CI. The layout
-    tier waits for ROADMAP Queue 1 item 10."""
+    all-clean gate `tools/check_geom.py` enforces in CI."""
     geometry: List[Optional[dict]] = field(default_factory=list)
     filename = "layout_table.json"
 

@@ -106,6 +106,9 @@ class Session:
         # shared between overlapping transient/layout-fidelity sweeps
         # exactly like the analytic points
         self._tchars: Dict[tuple, object] = {}
+        # per-config geometry verification reports (layout tier), keyed
+        # by (config key, n_seg)
+        self._geoms: Dict[tuple, dict] = {}
         # (lattice fields, vdd_scales) -> VddLattice; match results and
         # co-design reports by their shaping fields (_match_key /
         # _codesign_key)
@@ -282,8 +285,10 @@ class Session:
         fidelity="analytic" returns a DesignTable; fidelity="transient"
         additionally runs the topology-grouped batched transient engine
         over every gain-cell point and returns a CalibratedTable;
-        fidelity="layout" (layout-extracted parasitics and a LayoutTable)
-        waits for ROADMAP Queue 1 item 10.
+        fidelity="layout" drives that engine with layout-extracted
+        parasitics and returns a LayoutTable that also carries every
+        point's geometry verification report (DRC + LVS-lite +
+        extraction bit-parity, `geom`).
 
         Goes straight to the planned path (NOT through run()'s
         subclass-override dispatch), so a legacy subclass whose run()

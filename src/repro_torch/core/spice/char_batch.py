@@ -92,9 +92,15 @@ def _pipeline(bank0, key: tuple):
 
 def group_inputs(cfgs: List[BankConfig], banks, *, n_seg: int, n_steps: int,
                  solver: str = "pallas", precision: str = "f64",
-                 device="cuda") -> dict:
+                 parasitics: str = "modeled", device="cuda") -> dict:
     """Host assembly of one topology group: the `Transient` and the
     per-point run_lattice inputs, padded to a power-of-two bucket.
+
+    parasitics="extracted" (the layout tier): one batched extraction
+    over the group (`geom.extract.extract_lattice`) replaces the
+    hand-modeled bitline ladder totals. The via R/C folds uniformly into
+    the n_seg segments, so the element structure, and with it the
+    pipeline entry, is the same as at "modeled".
 
     Returns a dict with "tr", "wt", "wv", "t_end" (padded, numpy),
     "over" ({"G", "C"} padded (Bp, n, n) float64 tensors on `device`),
@@ -106,6 +112,10 @@ def group_inputs(cfgs: List[BankConfig], banks, *, n_seg: int, n_steps: int,
     key = topology_key(cfgs[0]) + (n_seg, n_steps, solver, precision,
                                    str(torch.device(device)))
     system, tr, res_stamps, cap_stamps, src_G, meta = _pipeline(bank0, key)
+    ext = None
+    if parasitics == "extracted":
+        from repro_torch.geom import extract as geom_extract
+        ext = geom_extract.extract_lattice(banks)
 
     # the per-point netlist builder is the single source of truth for
     # element VALUES (ladder R/C, device caps, SA load); structure is
@@ -114,14 +124,16 @@ def group_inputs(cfgs: List[BankConfig], banks, *, n_seg: int, n_steps: int,
     c_vals = np.zeros((len(banks), len(cap_stamps)))
     t_an = np.zeros((len(banks),))
     for p, bank in enumerate(banks):
-        ckt_p, _ = timing_mod.read_netlist(bank, n_seg=n_seg)
+        rc_p = (float(ext["bl_r_ohm"][p]), float(ext["bl_c_f"][p])) \
+            if ext is not None else None
+        ckt_p, _ = timing_mod.read_netlist(bank, n_seg=n_seg, rc=rc_p)
         if not (len(ckt_p.names) == len(system.names)
                 and len(ckt_p.res) == len(res_stamps)
                 and len(ckt_p.caps) == len(cap_stamps)):
             raise ValueError("topology group mismatch")
         g_vals[p] = [g for _, _, g in ckt_p.res]
         c_vals[p] = [c for _, _, c in ckt_p.caps]
-        t_an[p] = timing_mod.cell_read_time(bank)[0]
+        t_an[p] = timing_mod.cell_read_time(bank, rc=rc_p)[0]
 
     G_b = src_G[None] + np.einsum("br,rij->bij", g_vals, res_stamps)
     C_b = np.einsum("bc,cij->bij", c_vals, cap_stamps)
@@ -162,9 +174,11 @@ def group_inputs(cfgs: List[BankConfig], banks, *, n_seg: int, n_steps: int,
 
 def _characterize_group(cfgs: List[BankConfig], banks, *, n_seg: int,
                         n_steps: int, solver: str, precision: str = "f64",
+                        parasitics: str = "modeled",
                         device="cuda") -> List[TransientChar]:
     inp = group_inputs(cfgs, banks, n_seg=n_seg, n_steps=n_steps,
-                       solver=solver, precision=precision, device=device)
+                       solver=solver, precision=precision,
+                       parasitics=parasitics, device=device)
     res = inp["tr"].run_lattice(inp["wt"], inp["wv"], inp["t_end"], n_steps,
                                 over_batches=inp["over"], v0=inp["v0"])
     tech, cell = cfgs[0].tech, banks[0].cell
@@ -202,12 +216,11 @@ def characterize(cfgs: Sequence[BankConfig], *, n_steps: int = 300,
     configs (no single-ended read column to simulate) get None. One
     transient run per cell topology, on `device`.
 
-    parasitics="extracted" (the layout tier) is not ported yet."""
-    if parasitics == "extracted":
-        raise NotImplementedError(
-            "characterize(parasitics='extracted') is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 10 (layout tier))")
-    if parasitics != "modeled":
+    parasitics="extracted" (fidelity="layout") swaps the hand-modeled
+    read-bitline ladder for the batched layout extraction
+    (`geom.extract.extract_lattice`): one struct-of-arrays extraction per
+    topology group, the same transient pipeline."""
+    if parasitics not in ("modeled", "extracted"):
         raise ValueError(f"parasitics must be 'modeled' or 'extracted', "
                          f"got {parasitics!r}")
     cfgs = list(cfgs)
@@ -219,7 +232,8 @@ def characterize(cfgs: Sequence[BankConfig], *, n_steps: int = 300,
             continue
         chars = _characterize_group(group, banks, n_seg=n_seg,
                                     n_steps=n_steps, solver=solver,
-                                    precision=precision, device=device)
+                                    precision=precision,
+                                    parasitics=parasitics, device=device)
         for i, ch in zip(idx, chars):
             out[i] = ch
     return out

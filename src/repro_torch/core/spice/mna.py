@@ -16,12 +16,11 @@ formula for formula.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch._deferred import deferred
 from repro_torch.core.spice.devices import sigmoid, softplus
 from repro_torch.core.techfile import PHI_T, DeviceFlavor
 
@@ -240,8 +239,149 @@ class Circuit:
             src_G[nd - 1, nd - 1] += G_BIG
         return res_stamps, cap_stamps, src_G
 
-    build_sparsity = deferred("Circuit.build_sparsity",
-                              "Queue 1 item 3 (MNASparsity)")
+    def build_sparsity(self) -> "MNASparsity":
+        """Full structural export for the sparse-Newton engine: the union
+        Jacobian pattern plus the element-value projections, so a lattice
+        group assembles its per-point pattern values as
+
+            Gn = g_elems @ res_proj + src_nnz     # (B, nnz)
+            Cn = c_elems @ cap_proj               # (B, nnz)
+
+        (g_elems/c_elems in `res`/`caps` list order) without forming the
+        dense (B, n, n) matrices `build_stamps` implies."""
+        n = len(self.names) - 1
+        pairs = set()
+
+        def add(a, b):
+            for i, j in ((a, a), (b, b), (a, b), (b, a)):
+                if i > 0 and j > 0:
+                    pairs.add((i - 1, j - 1))
+
+        for a, b, _ in self.res:
+            add(a, b)
+        for a, b, _ in self.caps:
+            add(a, b)
+        d = self.devs
+        didx = {k: np.array([x[k] - 1 for x in d], np.int32) if d
+                else np.zeros((0,), np.int32) for k in ("g", "a", "b")}
+        entries, pos, rows, cols, diag_pos, dev_pos = MNASparsity._build(
+            n, pairs, didx, len(d))
+        nnz = len(entries)
+
+        def proj(elems):
+            P = np.zeros((len(elems), nnz))
+            for e, (a, b, _) in enumerate(elems):
+                if a > 0:
+                    P[e, pos[(a - 1, a - 1)]] += 1.0
+                if b > 0:
+                    P[e, pos[(b - 1, b - 1)]] += 1.0
+                if a > 0 and b > 0:
+                    P[e, pos[(a - 1, b - 1)]] -= 1.0
+                    P[e, pos[(b - 1, a - 1)]] -= 1.0
+            return P
+
+        src_nnz = np.zeros((nnz,))
+        for nd, _ in self.vsrcs:
+            src_nnz[pos[(nd - 1, nd - 1)]] += G_BIG
+        return MNASparsity(n, rows, cols, diag_pos, dev_pos,
+                           res_proj=proj(self.res),
+                           cap_proj=proj(self.caps), src_nnz=src_nnz)
+
+
+@dataclass(frozen=True)
+class MNASparsity:
+    """Fixed sparsity structure of one topology's MNA Newton system.
+
+    Within a topology group the circuit structure is identical across a
+    whole design lattice (only element values vary), so the union
+    nonzero pattern of J = C/h + G + dI/dv + gmin is a per-topology
+    constant. This object holds that pattern plus the index maps the
+    sparse-Newton engine (`kernels/batched_solve/sparse.py`) needs to
+    re-stamp, factor and solve without dense (B, n, n) matrices. The maps
+    are host numpy; values live in tensors on the system's device.
+
+      rows/cols    COO pattern of the nnz stored entries (row-major
+                   sorted; the LU schedule relies on the order being
+                   deterministic, not on any particular sort)
+      diag_pos     position of (i, i) for each node i
+      dev_pos      (9, n_dev) positions of each device's 3x3 stamp
+                   entries in `device_jacobian` row/col order
+                   [(a,g),(a,a),(a,b),(b,g),(b,a),(b,b),(g,g),(g,a),
+                   (g,b)]; -1 where the row or column is ground
+      res_proj     (n_res, nnz) unit-stamp projection: Gn = g @ res_proj
+                   reproduces build()'s resistor accumulation on the
+                   pattern (None when built from_system: dense G/C are
+                   projected directly instead)
+      cap_proj     (n_cap, nnz) likewise for capacitor values
+      src_nnz      (nnz,) Norton G_BIG source conductances on the
+                   pattern (already folded into dense G by build())
+
+    gmin is in no map: the solver adds G_MIN at diag_pos."""
+    n: int
+    rows: np.ndarray
+    cols: np.ndarray
+    diag_pos: np.ndarray
+    dev_pos: np.ndarray
+    res_proj: Optional[np.ndarray] = None
+    cap_proj: Optional[np.ndarray] = None
+    src_nnz: Optional[np.ndarray] = None
+    # index tensors of the pattern per torch device (the sparse engine's)
+    device_maps: dict = field(default_factory=dict, repr=False,
+                              compare=False)
+
+    @property
+    def nnz(self) -> int:
+        return len(self.rows)
+
+    def pos(self) -> Dict[tuple, int]:
+        return {(int(i), int(j)): p
+                for p, (i, j) in enumerate(zip(self.rows, self.cols))}
+
+    def project_dense(self, M: torch.Tensor) -> torch.Tensor:
+        """Dense (..., n, n) matrix -> (..., nnz) pattern values, on M's
+        device."""
+        rows = torch.as_tensor(self.rows, dtype=torch.long, device=M.device)
+        cols = torch.as_tensor(self.cols, dtype=torch.long, device=M.device)
+        return M[..., rows, cols]
+
+    @staticmethod
+    def _build(n, pairs, didx, n_dev):
+        pairs = set(pairs) | {(i, i) for i in range(n)}
+        na, nb, ng = didx["a"], didx["b"], didx["g"]
+        for d in range(n_dev):
+            nodes = [int(x[d]) for x in (ng, na, nb)]
+            pairs |= {(i, j) for i in nodes for j in nodes
+                      if i >= 0 and j >= 0}
+        entries = sorted(pairs)
+        pos = {e: p for p, e in enumerate(entries)}
+        rows = np.array([i for i, _ in entries], np.int32)
+        cols = np.array([j for _, j in entries], np.int32)
+        diag_pos = np.array([pos[(i, i)] for i in range(n)], np.int32)
+        dev_pos = np.full((9, n_dev), -1, np.int32)
+        combos = ((na, ng), (na, na), (na, nb), (nb, ng), (nb, na),
+                  (nb, nb), (ng, ng), (ng, na), (ng, nb))
+        for e, (ri, ci) in enumerate(combos):
+            for d in range(n_dev):
+                i, j = int(ri[d]), int(ci[d])
+                if i >= 0 and j >= 0:
+                    dev_pos[e, d] = pos[(i, j)]
+        return entries, pos, rows, cols, diag_pos, dev_pos
+
+    @staticmethod
+    def from_system(system: "MNASystem") -> "MNASparsity":
+        """Pattern-only structure from a built system: nonzeros of the
+        numeric G/C (structural by construction: conductance stamps
+        cannot cancel) plus the device stamps and the diagonal. Callers
+        project dense G/C through `project_dense`; no element-value
+        projections are available on this path."""
+        G = system.G.cpu().numpy()
+        C = system.C.cpu().numpy()
+        pairs = {(int(i), int(j))
+                 for i, j in zip(*np.nonzero((G != 0.0) | (C != 0.0)))}
+        n_dev = int(system.dev["pol"].shape[0])
+        _, _, rows, cols, diag_pos, dev_pos = MNASparsity._build(
+            system.n, pairs, system.didx, n_dev)
+        return MNASparsity(system.n, rows, cols, diag_pos, dev_pos)
 
 
 @dataclass

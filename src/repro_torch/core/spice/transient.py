@@ -1,7 +1,7 @@
 """Transient solver: backward Euler + Newton, a Python loop over time
 steps, a leading lane axis over design points.
 
-Two engines, as in the reference:
+Three engines, as in the reference:
 
   * the dense stepper (`make_stepper`), behind `Transient.run`,
     `run_batch` and `run_lattice(solver="jnp")`: every Newton iteration
@@ -13,7 +13,14 @@ Two engines, as in the reference:
     everything constant over the run (h is fixed per point, so the
     linear Jacobian part never changes) is precomputed, then
     `ops.fused_newton_scan` runs every step; on CUDA tensors that is one
-    launch of the kernel of `kernels/batched_solve/fused.py` per run.
+    launch of the kernel of `kernels/batched_solve/fused.py` per run;
+  * the fixed-pattern sparse-LU engine behind
+    `run_lattice(solver="sparse")`: per step, a Newton solve that
+    re-stamps, factors and solves the pattern values
+    (`kernels/batched_solve/sparse.py`), plain torch on the system's
+    device (the reference runs it as plain XLA; it has no kernel).
+    `run`/`run_batch` with solver="sparse" use the dense stepper with
+    `torch.linalg.solve`, as the reference's do.
 
 The reference's early-exit Newton loop (a `while_loop` under vmap, which
 freezes converged lanes) becomes a fixed-length loop with a per-lane
@@ -26,14 +33,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.spice.mna import G_BIG, MNASystem
+from repro_torch.core.spice.mna import G_BIG, MNASparsity, MNASystem
 from repro_torch.kernels.batched_solve import newton as nwt
 from repro_torch.kernels.batched_solve import ops as solve_ops
+from repro_torch.kernels.batched_solve import sparse as sps
 from repro_torch.kernels.batched_solve.sparse import PARAM_FIELDS, pack_params
 
 NEWTON_ITERS = 6
 NEWTON_TOL = 1e-6       # volts; max|dv| under this ends the Newton loop
-SOLVERS = ("jnp", "pallas")
+SOLVERS = ("jnp", "pallas", "sparse")
 NEWTON_MODES = ("full", "jacfwd", "modified")
 
 
@@ -118,8 +126,9 @@ def make_stepper(system: MNASystem, solver_name: str = "jnp",
     newton="modified": one `lu_factor` of the step's first Jacobian, then
                        `iters` chord iterations with `lu_solve`
 
-    solver_name "jnp" solves with `torch.linalg.solve`; "pallas" with the
-    float32 Gauss-Jordan solve (`ops.solve`). "modified" always uses LU,
+    solver_name "jnp" (and "sparse", whose engine serves lattice runs
+    only) solves with `torch.linalg.solve`; "pallas" with the float32
+    Gauss-Jordan solve (`ops.solve`). "modified" always uses LU,
     as the reference does. with_aux=True (full mode only) makes step
     return (v_next, n_iters) with each lane's iteration count.
     """
@@ -185,20 +194,16 @@ class Transient:
     solver: "jnp" (the dense stepper with `torch.linalg.solve`
     everywhere) or "pallas" (`run`/`run_batch` use the dense stepper with
     the float32 Gauss-Jordan solve; `run_lattice` uses the fused
-    Woodbury-Newton engine). "sparse" (the symbolic-LU engine) is not
-    ported yet.
+    Woodbury-Newton engine) or "sparse" (`run_lattice` uses the
+    fixed-pattern symbolic-LU engine; `run`/`run_batch` the dense stepper
+    as with "jnp").
 
-    precision (fused lattice engine only): "f64" | "mixed" (f32 carried
+    precision (lattice engines only): "f64" | "mixed" (f32 carried
     state/traces, f64 model + solve) | "f32" (screening only)."""
 
     def __init__(self, system: MNASystem, solver: str = "jnp",
                  newton: str = "full", iters: int = NEWTON_ITERS,
                  tol: float = NEWTON_TOL, precision: str = "f64"):
-        if solver == "sparse":
-            raise NotImplementedError(
-                "Transient(solver='sparse') is not ported to repro_torch "
-                "yet (ROADMAP Queue 1 item 4 (sparse-LU engine)); use "
-                "solver='jnp' or 'pallas'")
         if solver not in SOLVERS:
             raise ValueError(f"solver must be one of {SOLVERS}, got "
                              f"{solver!r}")
@@ -210,8 +215,13 @@ class Transient:
         self._step = make_stepper(system, solver, newton=newton,
                                   iters=iters, tol=tol)
         self._wave_cache = {}
-        self.spec = (nwt.build_fused_spec(system, precision)
-                     if solver == "pallas" else None)
+        if solver == "pallas":
+            self.spec = nwt.build_fused_spec(system, precision)
+        elif solver == "sparse":
+            self.spec = sps.build_spec(
+                system, MNASparsity.from_system(system), precision)
+        else:
+            self.spec = None
 
     @property
     def device(self) -> torch.device:
@@ -305,9 +315,10 @@ class Transient:
         system's device. Returns {"all": (B, T, n), "t": (B, T), probes:
         (B, T)}.
 
-        With solver="pallas" the run goes to the fused engine, which
-        takes only "G"/"C" and device-parameter batches (PARAM_FIELDS
-        names + "ig"); solver="jnp" vmaps the dense stepper per point.
+        With solver="pallas" the run goes to the fused engine, with
+        "sparse" to the sparse-LU engine; both take only "G"/"C" and
+        device-parameter batches (PARAM_FIELDS names + "ig").
+        solver="jnp" runs the dense stepper per point.
         """
         dev = self.device
         f64 = dict(dtype=torch.float64, device=dev)
@@ -336,7 +347,9 @@ class Transient:
                 "C", self.system.C.expand(B, n, n)), **f64)
             dev_over = {k: torch.as_tensor(v, device=dev)
                         for k, v in over_batches.items() if k in dev_allowed}
-            vs = self._run_lattice_fused(
+            run = (self._run_lattice_fused if self.solver == "pallas"
+                   else self._run_lattice_sparse)
+            vs = run(
                 t_end, torch.as_tensor(wt, **f64),
                 torch.as_tensor(wv, **f64), int(n_steps),
                 torch.as_tensor(v0, device=dev), G_b, C_b, dev_over)
@@ -382,3 +395,28 @@ class Transient:
         v = v0.to(sdt).expand(B, n).contiguous()
         return solve_ops.fused_newton_scan(spec, pre, Ksrc, params, v,
                                            iters=self.iters, tol=self.tol)
+
+    def _run_lattice_sparse(self, te, wt, wv, n_steps, v0, G_b, C_b,
+                            dev_over):
+        """The sparse-LU engine: the pattern values of G and C/h once per
+        run, then per step the right-hand side (C/h) v_prev + src and one
+        Newton solve (`sps.newton_solve_implicit`)."""
+        spec = self.spec
+        sdt, cdt = spec.dtypes
+        sp = spec.sp
+        B, n = te.shape[0], sp.n
+        h = te / n_steps
+        gn = sp.project_dense(G_b.to(cdt))
+        cn = sp.project_dense(C_b.to(cdt))
+        j_const = sps.j_constant(spec, gn, cn, h)
+        coh = (cn / h[:, None]).to(cdt)
+        src = self.src_sequence(te, wt, wv, n_steps)
+        params = pack_params(self.system.dev, B, cdt, dev_over)
+        v = v0.to(sdt).expand(B, n)
+        vs = torch.empty((B, n_steps, n), dtype=sdt, device=te.device)
+        for t in range(n_steps):
+            rhs = sps.coo_matvec(sp, coh, v.to(cdt)) + src[:, t]
+            v = sps.newton_solve_implicit(spec, self.iters, self.tol,
+                                          j_const, rhs, params, v)
+            vs[:, t] = v
+        return vs

@@ -159,23 +159,28 @@ def size_delay_chain(analog_s: float, tech) -> tuple:
 
 def analyze(bank, *, vdd_scale: float = 1.0,
             parasitics: str = "modeled") -> Timing:
-    """Analytic read/write timing closure of one bank, with the hand RC
-    models of `core.bank`. Sets `bank.delay_stages`.
+    """Analytic read/write timing closure of one bank. Sets
+    `bank.delay_stages`.
 
-    parasitics="extracted" (layout-extracted read-column RC) waits for
-    the layout tier."""
-    if parasitics == "extracted":
-        raise NotImplementedError(
-            "timing.analyze(parasitics='extracted') is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 10 (layout tier))")
-    if parasitics != "modeled":
+    parasitics="modeled" (default) uses the hand RC models of
+    `core.bank`; "extracted" drives the read critical path (wordline
+    Elmore, cell sense swing, and through them the delay-chain stage
+    count) with the layout-extracted read-column RC of `geom.extract`.
+    The write path stays hand-modeled either way."""
+    if parasitics not in ("modeled", "extracted"):
         raise ValueError(f"parasitics must be 'modeled' or 'extracted', "
                          f"got {parasitics!r}")
     bank = bank_at_vdd(bank, vdd_scale)
     tech = bank.cfg.tech
     t_dec = decoder_delay(bank.rows)
-    t_wl = wordline_delay(bank)
-    t_cell, ok = cell_read_time(bank)
+    wl_rc = bl_rc = None
+    if parasitics == "extracted":
+        from repro_torch.geom import extract as geom_extract
+        rcs = geom_extract.read_column_rc(bank)
+        wl_rc = (rcs["wl_r_ohm"], rcs["wl_c_f"])
+        bl_rc = (rcs["bl_r_ohm"], rcs["bl_c_f"])
+    t_wl = wordline_delay(bank, rc=wl_rc)
+    t_cell, ok = cell_read_time(bank, rc=bl_rc)
     t_colmux = 2 * FO4_S if bank.has_colmux else 0.0
     analog = t_wl + t_cell + t_colmux + tech.sa_delay_s
     if bank.is_gc:

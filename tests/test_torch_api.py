@@ -291,6 +291,52 @@ def test_reference_store_is_not_read(tmp_path):
     assert len(s.store) == 2                  # one artifact per package
 
 
+def test_sweep_layout_matches_reference(tmp_path):
+    """SweepQuery(fidelity="layout") through a stored session: geometry
+    reports equal to the reference's exactly, the extracted transient
+    t_cell within 1e-9, the analytic fields as in the other sweeps; a
+    fresh session on the store replays it with no geometry rebuild and
+    no transient run (the reference's test_layout_fidelity_end_to_end)."""
+    kw = dict(cells=("gc2t_nn", "gc2t_osos"), word_sizes=(16,),
+              num_words=(64,), wwlls=(False,), sim_steps=200)
+    _, (want,) = ref_run([ref_api.SweepQuery(fidelity="layout", **kw)])
+    s = api.Session(store=str(tmp_path), device="cpu")
+    got = s.run(api.SweepQuery(fidelity="layout", **kw))
+    assert isinstance(got, api.LayoutTable) and len(got) == 2
+    assert got.geometry == want.geometry
+    assert got.geometry_summary() == want.geometry_summary()
+    assert got.geometry_summary()["all_clean"]
+    assert s.executor.stats["geom_verifies"] == 2
+    lat = {k: v for k, v in kw.items() if k != "sim_steps"}
+    assert_table(got, want, plain_retention(lat))
+    assert_chars(got.transient, want.transient)
+    d = got.as_dict()
+    assert all("geometry" in row for row in d["rows"])
+    json.dumps(d)
+    s2 = api.Session(store=str(tmp_path), device="cpu")
+    again = s2.run(api.SweepQuery(fidelity="layout", **kw))
+    assert s2.executor.stats["geom_verifies"] == 0
+    assert s2.executor.stats["char_calls"] == 0
+    assert again.geometry == got.geometry
+    assert [c.t_cell_s for c in again.transient] == \
+        [c.t_cell_s for c in got.transient]
+
+
+def test_sweep_sparse_matches_reference():
+    """SweepQuery(solver="sparse"): t_cell within 1e-9 of the reference's
+    sparse engine."""
+    lat = dict(cells=("gc2t_nn",), word_sizes=(16,), num_words=(16, 64),
+               wwlls=(False,))
+    q = dict(lat, fidelity="transient", solver="sparse", sim_steps=200)
+    _, (want,) = ref_run([ref_api.SweepQuery(**q)])
+    s = api.Session(device="cpu")
+    got = s.run(api.SweepQuery(**q))
+    assert isinstance(got, api.CalibratedTable) and len(got) == 2
+    assert_table(got, want, plain_retention(lat))
+    assert_chars(got.transient, want.transient)
+    assert s.executor.stats["char_calls"] == 1
+
+
 def test_deferred_queries_name_their_item():
     s = api.Session(device="cpu")
     tiny = dict(cells=("gc2t_nn",), word_sizes=(16,), num_words=(16,),
@@ -299,14 +345,16 @@ def test_deferred_queries_name_their_item():
                    1e-3, 1e-6, 3e8, 8e8)
     for query, item in (
             (api.OptimizeQuery(), "item 11"),
-            (api.CoDesignQuery((prof,)), "item 12"),
-            (api.SweepQuery(**tiny, fidelity="layout"), "item 10"),
-            (api.SweepQuery(**tiny, fidelity="transient", solver="sparse"),
-             "item 4")):
+            (api.CoDesignQuery((prof,)), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             s.run(query)
     with pytest.raises(NotImplementedError, match="item 12"):
         s.codesign_measured([], None)
+    # the layout tier (item 10) and the sparse engine (item 4) run now
+    for fidelity, solver in (("layout", "pallas"), ("transient", "sparse")):
+        t = s.run(api.SweepQuery(**tiny, fidelity=fidelity, solver=solver,
+                                 sim_steps=20))
+        assert len(t) == 1 and t.transient[0].n_steps == 20
     with pytest.raises(ValueError):
         api.SweepQuery(fidelity="bogus")
     with pytest.raises(ValueError):

@@ -82,9 +82,14 @@ def test_non_gain_cells_and_deferred_paths():
     out = char_batch.characterize([BankConfig(16, 16, cell="sram6t")],
                                   device="cpu")
     assert out == [None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        char_batch.characterize(dse.lattice_configs(**LATTICE)[:1],
-                                parasitics="extracted", device="cpu")
+    # parasitics="extracted" (the layout tier) runs and matches the
+    # reference
+    got = char_batch.characterize(dse.lattice_configs(**LATTICE)[:1],
+                                  parasitics="extracted", device="cpu")
+    want = ref_cb.characterize(ref_dse.lattice_configs(**LATTICE)[:1],
+                               parasitics="extracted")
+    np.testing.assert_allclose(got[0].t_cell_s, want[0].t_cell_s,
+                               rtol=RTOL_F64)
     with pytest.raises(ValueError):
         char_batch.characterize([], parasitics="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -93,8 +98,9 @@ def test_non_gain_cells_and_deferred_paths():
 
 @pytest.mark.parametrize("solver", ["jnp", "sparse"])
 def test_transient_other_solvers_are_deferred(solver):
-    """The dense solver ("jnp") runs now; the sparse-LU engine is still
-    deferred."""
+    """Both other solvers run now: "jnp" (the dense stepper) and
+    "sparse" (the sparse-LU engine, whose lattice run is held to the
+    dense one within the reference's 1e-6 V)."""
     from repro_torch.core import timing
     from repro_torch.core.bank import build_bank
     ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 16)))
@@ -106,8 +112,15 @@ def test_transient_other_solvers_are_deferred(solver):
         assert out["all"].shape == (5, system.n)
         assert torch.isfinite(out["all"]).all()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transient(system, solver=solver)
+    wt = np.array([[[0.0, 1.0]] * 4])
+    wv = np.array([[[1.1, 1.1], [0.0, 0.0], [1.1, 1.1], [1.1, 1.1]]])
+    v0 = torch.full((system.n,), 1.1, dtype=torch.float64)
+    got = Transient(system, solver=solver).run_lattice(
+        wt, wv, [1e-10], 5, v0=v0)["all"]
+    want = Transient(system, solver="jnp").run_lattice(
+        wt, wv, [1e-10], 5, v0=v0)["all"]
+    assert got.shape == (1, 5, system.n)
+    assert float((got - want).abs().max()) <= 1e-6
 
 
 def test_run_lattice_rejects_unknown_overrides():

@@ -132,6 +132,14 @@ def test_deferred_parts_name_their_roadmap_item():
     for fn in (dse.grad_optimize, cells.v_sn_written_t, dse.evaluate_grad):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
+    # timing.analyze(parasitics="extracted") is ported (layout tier): it
+    # equals the x64 reference
     b = bank.build_bank(bank.BankConfig(16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        timing.analyze(b, parasitics="extracted")
+    got = timing.analyze(b, parasitics="extracted").as_dict()
+    with jax.enable_x64(True):
+        want = ref_timing.analyze(
+            ref_bank.build_bank(ref_bank.BankConfig(16, 16)),
+            parasitics="extracted").as_dict()
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-12, err_msg=k)

@@ -284,8 +284,15 @@ def test_characterize_jnp_matches_reference():
 def test_transient_solver_names():
     _, port, _ = _systems("gc2t_nn")
     assert tr.Transient(port).solver == "jnp"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tr.Transient(port, solver="sparse")
+    # "sparse" builds the sparse-LU engine's spec for lattice runs; its
+    # scalar run is the dense stepper, as with "jnp"
+    sparse = tr.Transient(port, solver="sparse")
+    assert sparse.solver == "sparse" and sparse.spec.sched.n == port.n
+    waves1 = [([0.0, 1.0], [1.1, 1.1])] * 4
+    v0 = torch.full((port.n,), 1.1, dtype=torch.float64)
+    assert torch.equal(sparse.run(waves1, 1e-10, n_steps=5, v0=v0)["all"],
+                       tr.Transient(port).run(waves1, 1e-10, n_steps=5,
+                                              v0=v0)["all"])
     with pytest.raises(ValueError):
         tr.Transient(port, solver="bogus")
     with pytest.raises(ValueError):

@@ -46,7 +46,10 @@ def test_port_has_modules():
                  "core/dse_grad.py", "core/multibank.py",
                  "api/__init__.py", "api/queries.py", "api/results.py",
                  "api/store.py", "api/leases.py", "api/plan.py",
-                 "api/executor.py", "api/session.py"):
+                 "api/executor.py", "api/session.py", "geom/__init__.py",
+                 "geom/grid.py", "geom/extract.py", "geom/placer.py",
+                 "geom/router.py", "geom/verify.py",
+                 "kernels/batched_solve/sparse.py"):
         assert need in names
     for src in ("fused_newton", "gauss_jordan", "gc_array_step",
                 "flash_attention", "flash_attention_tc"):

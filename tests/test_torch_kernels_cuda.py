@@ -532,3 +532,45 @@ def test_serving_on_the_card(cuda):
                             if model is card else 0)
         streams.append({r.rid: r.out_tokens for r in done})
     assert streams[0] == streams[1] == streams[2]
+
+
+def test_layout_sweep_on_the_card(cuda):
+    """SweepQuery(fidelity="layout") over the default 96-point lattice on
+    the card: one scan launch per topology group (6), no one-step launch,
+    96 clean geometry reports, and t_cell within 1e-9 of the port's CPU
+    characterization with extracted parasitics."""
+    from repro_torch import api
+    from repro_torch.core.dse import lattice_configs
+    from repro_torch.core.spice.char_batch import characterize
+    s = api.Session(device="cuda")
+    fused_newton.launches = 0
+    fused_newton_scan.launches = 0
+    t = s.run(api.SweepQuery(fidelity="layout"))
+    assert fused_newton_scan.launches == 6
+    assert fused_newton.launches == 0
+    assert s.executor.stats["geom_verifies"] == 96
+    summary = t.geometry_summary()
+    assert summary["all_clean"] and summary["n_verified"] == 96
+    cpu = characterize(lattice_configs(), parasitics="extracted",
+                       device="cpu")
+    got = np.array([c.t_cell_s for c in t.transient])
+    want = np.array([c.t_cell_s for c in cpu])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-9)
+
+
+def test_sparse_sweep_on_the_card(cuda):
+    """SweepQuery(solver="sparse") on the card launches no scan kernel and
+    matches the port's CPU run of the sparse engine to 1e-9."""
+    from repro_torch import api
+    from repro_torch.core.dse import lattice_configs
+    from repro_torch.core.spice.char_batch import characterize
+    q = dict(cells=("gc2t_nn",), word_sizes=(16,), num_words=(16, 64),
+             wwlls=(False,))
+    fused_newton_scan.launches = 0
+    t = api.Session(device="cuda").run(
+        api.SweepQuery(fidelity="transient", solver="sparse", **q))
+    assert fused_newton_scan.launches == 0
+    cpu = characterize(lattice_configs(**q), solver="sparse", device="cpu")
+    np.testing.assert_allclose([c.t_cell_s for c in t.transient],
+                               [c.t_cell_s for c in cpu], rtol=1e-9)

@@ -99,6 +99,12 @@ def test_analytic_grads_match_autograd(flavor):
 
 
 def test_build_sparsity_is_deferred():
-    _, _, ckt, _ = _netlists("gc2t_nn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ckt.build_sparsity()
+    """`Circuit.build_sparsity` is ported (ROADMAP Queue 1 item 3): the
+    pattern and its projections equal the reference's exactly."""
+    ref_ckt, _, ckt, _ = _netlists("gc2t_nn")
+    got, want = ckt.build_sparsity(), ref_ckt.build_sparsity()
+    assert (got.n, got.nnz) == (want.n, want.nnz)
+    for f in ("rows", "cols", "diag_pos", "dev_pos", "res_proj", "cap_proj",
+              "src_nnz"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)

@@ -74,7 +74,27 @@ Phases:
      one Newton iteration of one group under a dispatch counter (every
      operation on the card but the lifts of host inputs; torch
      operations per iteration);
- 10. drive the serving path: `llama3.2-1b` at full width in bf16 with
+ 10. drive the gradient path: `t_cell_grad_fn(solver="pallas")` under
+     `torch.autograd.grad` on the card for each of the six topology
+     groups (its 32x64 config, 16 points: the nominal point, the base
+     point of tests/test_grad_dse.py and its +/-1e-4 relative steps per
+     knob, and 8 seeded points inside dse_opt.DEFAULT_BOUNDS), with the
+     counters set to 0 just before each: one scan launch forward, none
+     backward, no one-step launch; every point valid; t_cell within 1e-9
+     and the gradients within 1e-7 of the port's CPU run, the nominal
+     t_cell within 1e-9 of `characterize` on the card, the gradient at
+     the base point within 1e-4 of the batch's central differences; the
+     sparse-LU engine on gc2t_np (8 rows) within 1e-9 (t_cell) and 1e-6
+     (gradients) of the fused engine, with no scan launch; the warm walls
+     of each forward and backward and the backward's torch operations per
+     step; then `Session(device="cuda").run(OptimizeQuery(...))` for the
+     README's query and benchmarks/bench_optimize.py's full-mode flow (a
+     4-rung coarse screen of its 36-config lattice, 60 Adam steps on the
+     winner): verdicts equal to the CPU session's, knobs and objective
+     within 1e-6, a fresh session on the store the first wrote optimizes
+     and evaluates nothing, the same query again is a result-cache hit,
+     and the warm walls;
+ 11. drive the serving path: `llama3.2-1b` at full width in bf16 with
      seeded weights, 16 requests (prompts of 128-1024 tokens, 64 new
      tokens each, half greedy, half top-k sampled) through
      `ServeEngine(n_slots=8, window=2048, decode_chunk=8)`, counted: every
@@ -95,7 +115,7 @@ Phases:
      logit; then 2-layer full-width float32 greedy streams on the card
      against the CPU, counted: every prefill attention goes through the
      float32 flash-attention kernel;
-  11. time the fused Newton scan kernel (per launch and per step, by CUDA
+  12. time the fused Newton scan kernel (per launch and per step, by CUDA
      events and the profiler's device time), its plain version, its bound
      and its dependent chain, and the one-step entry; the Gauss-Jordan
      kernels (warp kernel at B = 1 and 4096, N = 13, with its dependent
@@ -111,9 +131,12 @@ Phases:
      call), and the warm compile and `run_batch` walls; then one warm
      match under the profiler: the device's idle share and the share of
      device time in the scan launches; one warm layout sweep under the
-     profiler: the device's idle share;
- 12. print a {"kernels": [...]} JSON line, the card line, and as the last
-     line {"ok": true, "device": {...}}.
+     profiler: the device's idle share; one warm gradient call (forward
+     and backward) under the profiler: the device's idle share and the
+     scan kernel's device ms in it;
+ 13. print a {"kernels": [...]} JSON line (the scan row also carries the
+     gradient path's launches), the card line, and as the last line
+     {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line is printed. Without a CUDA
 device, or outside a checkout of the repository, it fails at once.
@@ -980,42 +1003,50 @@ def time_match(cfgs, card) -> dict:
     return out
 
 
-def profile_query(q, label, n_groups, card) -> dict:
-    """One warm run of query `q` in a fresh session under torch.profiler:
-    device busy time (kernels by name, device-side events only) over the
-    wall time under the profiler, and the share of it in the scan
-    launches."""
+def profile_run(fn) -> dict:
+    """One warm call of `fn` under torch.profiler: the wall under the
+    profiler, the device busy time (kernels by name, device-side events
+    only), its count of device operations, and the scan launches'
+    share."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.api import Session
-    Session(device="cuda").run(q)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        Session(device="cuda").run(q)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = scan_ms = 0.0
-    scans = 0
+    scans = ops = 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
         busy_ms += ms
+        ops += ev.count
         if "fused_newton_kernel" in ev.key:
             scan_ms += ms
             scans += ev.count
-    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
-           "idle_share": 1.0 - busy_ms / wall_ms, "scan_ms": scan_ms,
-           "scan_share": scan_ms / busy_ms if busy_ms else None,
-           "scan_launches": scans}
-    log(f"profile {label} (warm, fresh session): wall {wall_ms!r} ms under "
-        f"the profiler, device busy {busy_ms!r} ms, idle share "
-        f"{out['idle_share']!r}; {scans} scan launches {scan_ms!r} ms, "
-        f"{out['scan_share']!r} of device time [{card}]")
-    if busy_ms <= 0 or scans != n_groups:
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_ops": ops,
+            "idle_share": 1.0 - busy_ms / wall_ms, "scan_ms": scan_ms,
+            "scan_share": scan_ms / busy_ms if busy_ms else None,
+            "scan_launches": scans}
+
+
+def profile_query(q, label, n_groups, card) -> dict:
+    """One warm run of query `q` in a fresh session under torch.profiler:
+    device busy time over the wall time under the profiler, and the
+    share of it in the scan launches."""
+    from repro_torch.api import Session
+    out = profile_run(lambda: Session(device="cuda").run(q))
+    log(f"profile {label} (warm, fresh session): wall {out['wall_ms']!r} ms "
+        f"under the profiler, device busy {out['busy_ms']!r} ms, idle share "
+        f"{out['idle_share']!r}; {out['scan_launches']} scan launches "
+        f"{out['scan_ms']!r} ms, {out['scan_share']!r} of device time "
+        f"[{card}]")
+    if out["busy_ms"] <= 0 or out["scan_launches"] != n_groups:
         raise RuntimeError(f"profile {label}: no device time or scan "
                            f"launches")
     return out
@@ -1300,6 +1331,324 @@ def sparse_path(cfgs, gpu_chars, card) -> dict:
         raise RuntimeError("sparse path: an operation left the card")
     return {"wall_s": wall_s, "rel": rel, "rel_cpu": rel_cpu,
             "iter_ops": iter_ops.n, "step_ops": step_ops.n}
+
+
+# -- the gradient path: `t_cell_grad_fn` under autograd and OptimizeQuery
+GRAD_SIZE = (32, 64)        # word_size, num_words of each topology's config
+GRAD_KNOBS = ("vdd_scale", "w_read_scale", "bl_wire_scale")
+# tests/test_grad_dse.py's base point, relative central-difference step
+# and acceptance threshold (its `_rel_err`)
+GRAD_BASE = np.array([0.97, 1.05, 0.92])
+GRAD_EPS = 1e-4
+GRAD_FD_TOL = 1e-4
+# eight seeded points inside dse_opt.DEFAULT_BOUNDS, vdd_scale from 0.95:
+# the stop time is pinned at the nominal point, and below ~0.9 the slow
+# topologies' reads do not cross before it (gc2t_osos at 0.86)
+GRAD_SEEDED = 8
+GRAD_LO, GRAD_HI = (0.95, 0.5, 0.5), (1.25, 2.0, 2.0)
+# card vs the port's CPU run: t_cell at the lattice's limit; gradients
+# relative to each knob's largest (the same float64 algebra; the
+# backward's sums run in other orders on the card)
+GRAD_RTOL_T = T_CELL_RTOL_F64
+GRAD_RTOL = 1e-7
+# the sparse-LU engine's gradients vs the fused engine's on one batch:
+# the engines' roots differ by up to their 1e-6 V freeze (SPARSE_RTOL),
+# and the adjoints start from those roots
+SPARSE_GRAD_RTOL = 1e-6
+GRAD_REPS = 5               # warm walls: the median of this many runs
+# OptimizeQuery: the README's query, and benchmarks/bench_optimize.py's
+# full-mode flow (36-config lattice, its demand, a coarse 4-rung screen,
+# 60 Adam steps on the winner); card vs CPU knobs and objective
+README_OPTIMIZE = dict(cell="gc2t_np", target_freq_hz=5e8, target_ret_s=5e-5,
+                       knobs=("vdd_scale", "w_read_scale"))
+BENCH_LATTICE = dict(cells=("gc2t_nn", "gc2t_np", "gc2t_osos"),
+                     word_sizes=(16, 32), num_words=(32, 64, 128),
+                     wwlls=(False, True))
+BENCH_DEMAND = dict(target_freq_hz=2e8, target_ret_s=5e-5)
+BENCH_STEPS = 60
+OPT_RTOL = 1e-6
+OPT_VERDICTS = ("met", "seed_met", "fell_back", "improved")
+
+
+def grad_rows() -> np.ndarray:
+    """(16, 3) knob rows: the nominal point, the base point, the base
+    point +/- GRAD_EPS relative per knob, and GRAD_SEEDED seeded points."""
+    h = GRAD_EPS * GRAD_BASE
+    rows = [np.ones(3), GRAD_BASE]
+    for j in range(3):
+        for s in (+1, -1):
+            p = GRAD_BASE.copy()
+            p[j] += s * h[j]
+            rows.append(p)
+    lo, hi = np.array(GRAD_LO), np.array(GRAD_HI)
+    rows += list(lo + (hi - lo) * np.random.default_rng(SEED).uniform(
+        size=(GRAD_SEEDED, 3)))
+    return np.stack(rows)
+
+
+def fd_rel_err(ad, fd, out_mag, x_mag) -> float:
+    """tests/test_grad_dse.py's `_rel_err`: |ad - fd| relative to the
+    gradient scale, floored at 1e-7 |f| / |x| (numerically zero at this
+    step size)."""
+    floor = 1e-7 * (abs(out_mag) / max(x_mag, 1e-30) + 1e-300)
+    return abs(ad - fd) / max(abs(ad), abs(fd), floor)
+
+
+def grad_configs(cfgs) -> list:
+    """The GRAD_SIZE config of each topology group of the lattice."""
+    from repro_torch.core.dse_batch import group_by_topology
+    return [next(cfgs[i] for i in idx if (cfgs[i].word_size,
+                                          cfgs[i].num_words) == GRAD_SIZE)
+            for idx in group_by_topology(cfgs).values()]
+
+
+def t_cell_grads(cfg, X, device, solver="pallas"):
+    """t_cell (B,), valid (B,) and d(sum t_cell)/d(knobs) (B, 3) of
+    `t_cell_grad_fn` at knob rows X, as numpy; and the scan launches
+    of the forward and of the backward."""
+    from repro_torch.core.spice.char_batch import t_cell_grad_fn
+    from repro_torch.kernels.batched_solve import fused
+    fn = t_cell_grad_fn(cfg, solver=solver, device=device)
+    x = torch.tensor(X, dtype=torch.float64, device=device,
+                     requires_grad=True)
+    before = fused.fused_newton_scan.launches
+    t, valid = fn({k: x[:, j] for j, k in enumerate(GRAD_KNOBS)})
+    fwd = fused.fused_newton_scan.launches - before
+    (g,) = torch.autograd.grad(t.sum(), x)
+    bwd = fused.fused_newton_scan.launches - before - fwd
+    return (t.detach().cpu().numpy(), valid.cpu().numpy(), g.cpu().numpy(),
+            fwd, bwd)
+
+
+def col_rel(got, want) -> float:
+    """max |got - want| relative to each column's largest |want|."""
+    scale = np.maximum(np.abs(want).max(axis=0), 1e-300)
+    return float((np.abs(got - want) / scale).max())
+
+
+def grad_path(cfgs, card) -> dict:
+    """`t_cell_grad_fn(solver="pallas")` under `torch.autograd.grad` on the
+    card, per topology group (its 32x64 config, the 16 rows of
+    `grad_rows`), counted: one scan launch forward, none backward, no
+    one-step launch; every point valid; t_cell and the gradients held to
+    the port's CPU run, the nominal t_cell to `characterize` on the card,
+    the gradient at the base point to the batch's central differences.
+    Then the warm walls of each forward and backward (median of
+    GRAD_REPS), and the backward's torch operations per step under the
+    dispatch counter."""
+    from repro_torch.core.spice.char_batch import (characterize,
+                                                   t_cell_grad_fn)
+    from repro_torch.kernels.batched_solve import fused
+    X = grad_rows()
+    h = GRAD_EPS * GRAD_BASE
+    launches, worst, per_cfg = 0, {"t": 0.0, "g": 0.0, "nominal": 0.0,
+                                   "fd": 0.0}, {}
+    for cfg in grad_configs(cfgs):
+        reset_scan_counts()
+        t, valid, g, fwd, bwd = t_cell_grads(cfg, X, "cuda")
+        one_step = fused.fused_newton.launches
+        launches += fwd
+        t_h, valid_h, g_h, _, _ = t_cell_grads(cfg, X, "cpu")
+        nominal = characterize([cfg], device="cuda")[0].t_cell_s
+        rel_t = float(np.max(np.abs(t - t_h) / np.abs(t_h)))
+        rel_g = col_rel(g, g_h)
+        rel_nom = float(abs(t[0] - nominal) / nominal)
+        fd = []
+        for j in range(3):
+            d = (t[2 + 2 * j] - t[3 + 2 * j]) / (2 * h[j])
+            fd.append(fd_rel_err(g[1, j], d, t[1], GRAD_BASE[j]))
+        label = f"{cfg.cell} {cfg.word_size}x{cfg.num_words} " \
+                f"wwlls={cfg.wwlls}"
+        log(f"grad path {label}: {len(X)} points, scan launches forward "
+            f"{fwd} backward {bwd}, one-step launches {one_step}; valid "
+            f"{int(valid.sum())}/{len(X)}; t_cell card vs CPU max rel "
+            f"{rel_t!r} (limit {GRAD_RTOL_T}), nominal vs characterize "
+            f"{rel_nom!r} (limit {GRAD_RTOL_T}); gradients card vs CPU max "
+            f"rel {rel_g!r} (limit {GRAD_RTOL}); at the base point "
+            f"d t_cell/d({', '.join(GRAD_KNOBS)}) = "
+            f"{[float(x) for x in g[1]]!r} s, vs central differences "
+            f"{[float(x) for x in fd]!r} (limit {GRAD_FD_TOL})")
+        if fwd != 1 or bwd != 0 or one_step != 0 or not valid.all() \
+                or not valid_h.all() or rel_t > GRAD_RTOL_T \
+                or rel_nom > GRAD_RTOL_T or rel_g > GRAD_RTOL \
+                or max(fd) >= GRAD_FD_TOL or not np.isfinite(g).all():
+            raise RuntimeError(f"grad path {label}")
+        for k, v in (("t", rel_t), ("g", rel_g), ("nominal", rel_nom),
+                     ("fd", max(fd))):
+            worst[k] = max(worst[k], v)
+        per_cfg[label] = (cfg, t, g)
+
+    # the sparse-LU engine on gc2t_np, the reference test's 8 rows
+    label, (cfg, t_f, g_f) = next((k, v) for k, v in per_cfg.items()
+                                  if v[0].cell == "gc2t_np"
+                                  and not v[0].wwlls)
+    reset_scan_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_s, valid_s, g_s, fwd_s, bwd_s = t_cell_grads(cfg, X[:8], "cuda",
+                                                   solver="sparse")
+    sparse_s = time.perf_counter() - t0
+    rel_st = float(np.max(np.abs(t_s - t_f[:8]) / np.abs(t_f[:8])))
+    rel_sg = col_rel(g_s, g_f[:8])
+    log(f"grad path sparse {label}: 8 points in {sparse_s!r} s (forward "
+        f"and backward, plain torch), scan launches {fwd_s + bwd_s}; t_cell "
+        f"vs the fused engine max rel {rel_st!r} (limit {GRAD_RTOL_T}), "
+        f"gradients {rel_sg!r} (limit {SPARSE_GRAD_RTOL}) [{card}]")
+    if fwd_s + bwd_s != 0 or not valid_s.all() or rel_st > GRAD_RTOL_T \
+            or rel_sg > SPARSE_GRAD_RTOL:
+        raise RuntimeError("grad path: sparse engine")
+
+    # warm walls, per topology: the forward and the backward, each timed
+    # to a synchronized card
+    walls = {}
+    for label, (cfg, _, _) in per_cfg.items():
+        fn = t_cell_grad_fn(cfg, device="cuda")
+        fw, bw = [], []
+        for _ in range(GRAD_REPS):
+            x = torch.tensor(X, device="cuda", requires_grad=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t, _ = fn({k: x[:, j] for j, k in enumerate(GRAD_KNOBS)})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.grad(t.sum(), x)
+            torch.cuda.synchronize()
+            fw.append(t1 - t0)
+            bw.append(time.perf_counter() - t1)
+        walls[label] = (statistics.median(fw), statistics.median(bw))
+        log(f"time grad {label} warm ({len(X)} points, {N_STEPS} steps): "
+            f"forward {', '.join(repr(w) for w in fw)} s, median "
+            f"{walls[label][0]!r} s; backward "
+            f"{', '.join(repr(w) for w in bw)} s, median "
+            f"{walls[label][1]!r} s [{card}]")
+    # the backward of one topology under the dispatch counter
+    cfg = next(iter(per_cfg.values()))[0]
+    fn = t_cell_grad_fn(cfg, device="cuda")
+    x = torch.tensor(X, device="cuda", requires_grad=True)
+    t, _ = fn({k: x[:, j] for j, k in enumerate(GRAD_KNOBS)})
+    with OpCount() as ops:
+        torch.autograd.grad(t.sum(), x)
+    log(f"grad path ops: one backward of {len(X)} points over {N_STEPS} "
+        f"steps, {ops.n} torch operations ({ops.n / N_STEPS!r} per step; "
+        f"devices {sorted(ops.devices)})")
+    if ops.n and ops.devices != {"cuda"}:
+        raise RuntimeError("grad path: a backward operation left the card")
+    return {"launches": launches, "worst": worst, "walls": walls,
+            "sparse_s": sparse_s, "ops": ops.n}
+
+
+def bench_winner(device) -> tuple:
+    """benchmarks/bench_optimize.py's coarse screen: the feasible argmin
+    of standby power over (VDD_LADDER x its 36-config lattice)."""
+    from repro_torch.core import dse_batch
+    from repro_torch.core.dse import lattice_configs
+    cfgs = lattice_configs(**BENCH_LATTICE)
+    lat = dse_batch.evaluate_vdd_lattice(cfgs, VDD_LADDER, device=device)
+    feas = dse_batch.feasible_grid(
+        lat.f_max_hz, lat.retention_s, lat.swing_ok, lat.num_words,
+        np.array([BENCH_DEMAND["target_freq_hz"]]),
+        np.array([BENCH_DEMAND["target_ret_s"]]), device=device)[:, :, 0]
+    obj = np.where(feas, lat.standby_w, np.inf)
+    v, p = np.unravel_index(int(np.argmin(obj)), obj.shape)
+    return cfgs[int(p)], float(obj[v, p])
+
+
+def optimize_queries(device) -> dict:
+    from repro_torch.api import OptimizeQuery
+    win, _ = bench_winner(device)
+    return {"README": OptimizeQuery(**README_OPTIMIZE),
+            "bench_optimize": OptimizeQuery(
+                cell=win.cell, word_size=win.word_size,
+                num_words=win.num_words, write_vt=win.write_vt,
+                wwlls=win.wwlls, knobs=("vdd_scale",), steps=BENCH_STEPS,
+                seed_vdd_scales=VDD_LADDER, **BENCH_DEMAND)}
+
+
+def optimize_path(card) -> dict:
+    """`Session(device="cuda").run(OptimizeQuery(...))` for the README's
+    query and bench_optimize's flow, held to the port's CPU session
+    (verdicts equal, knobs and objective OPT_RTOL); a fresh session on
+    the store the first wrote optimizes and evaluates nothing; the same
+    query again is a result-cache hit. Then the warm walls (median of
+    GRAD_REPS, a fresh session each run)."""
+    from repro_torch.api import Session
+    queries = optimize_queries("cuda")
+    cpu_queries = optimize_queries("cpu")
+    out = {}
+    for label, q in queries.items():
+        if cpu_queries[label] != q:
+            raise RuntimeError(f"optimize {label}: the CPU screen picked "
+                               f"another config")
+        store = ROOT / "build" / "smoke_opt_store"
+        shutil.rmtree(store, ignore_errors=True)
+        try:
+            s = Session(store=store, device="cuda")
+            got = s.run(q)
+            host = Session(device="cpu").run(q).as_dict()
+            fresh = Session(store=store, device="cuda")
+            again = fresh.run(q)
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        d = got.as_dict()
+        same = [k for k in OPT_VERDICTS if d[k] == host[k]]
+        rel_k = max(rel_err(d["knobs"][k], host["knobs"][k])
+                    for k in host["knobs"])
+        rel_o = rel_err(d["objective_value"], host["objective_value"])
+        hit = s.run(q) is got
+        replay = (again.as_dict() == d
+                  and fresh.executor.stats["optimize_calls"] == 0
+                  and fresh.executor.stats["vdd_evals"] == 0)
+        log(f"optimize {label}: {q.cell} {q.word_size}x{q.num_words} "
+            f"wwlls={q.wwlls} knobs {q.knobs}, {q.steps} steps: met "
+            f"{d['met']}, seed_met {d['seed_met']}, fell_back "
+            f"{d['fell_back']}, improved {d['improved']} (equal to the CPU "
+            f"run: {len(same) == len(OPT_VERDICTS)}); knobs {d['knobs']}, "
+            f"{d['objective']} {d['objective_value']!r} (seed "
+            f"{d['seed_objective_value']!r}); card vs CPU knobs max rel "
+            f"{rel_k!r}, objective {rel_o!r} (limit {OPT_RTOL}); store "
+            f"replay computes nothing {replay} "
+            f"({dict(fresh.executor.stats)}); result-cache hit {hit}")
+        if len(same) != len(OPT_VERDICTS) or rel_k > OPT_RTOL \
+                or rel_o > OPT_RTOL or not replay or not hit:
+            raise RuntimeError(f"optimize {label}")
+        walls = []
+        for _ in range(GRAD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Session(device="cuda").run(q)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[label] = statistics.median(walls)
+        log(f"time optimize {label} warm (fresh session): "
+            f"{', '.join(repr(w) for w in walls)} s, median "
+            f"{out[label]!r} s [{card}]")
+    return out
+
+
+def profile_grad(cfgs, card) -> dict:
+    """One warm forward + backward of `t_cell_grad_fn` (the first
+    topology group's 32x64 config, 16 points) under torch.profiler: the
+    device's idle share, and the scan kernel's device ms inside it."""
+    from repro_torch.core.spice.char_batch import t_cell_grad_fn
+    cfg = grad_configs(cfgs)[0]
+    fn = t_cell_grad_fn(cfg, device="cuda")
+    X = grad_rows()
+
+    def run():
+        x = torch.tensor(X, device="cuda", requires_grad=True)
+        t, _ = fn({k: x[:, j] for j, k in enumerate(GRAD_KNOBS)})
+        torch.autograd.grad(t.sum(), x)
+
+    out = profile_run(run)
+    log(f"profile grad {cfg.cell} {cfg.word_size}x{cfg.num_words} "
+        f"wwlls={cfg.wwlls} (warm forward + backward, {len(X)} points): "
+        f"wall {out['wall_ms']!r} ms under the profiler, device busy "
+        f"{out['busy_ms']!r} ms over {out['device_ops']} device operations, "
+        f"idle share {out['idle_share']!r}; {out['scan_launches']} scan "
+        f"launch(es) {out['scan_ms']!r} ms [{card}]")
+    if out["busy_ms"] <= 0 or out["scan_launches"] != 1:
+        raise RuntimeError("profile grad: no device time or scan launch")
+    return out
 
 
 def max_sm_clock_hz() -> float:
@@ -2145,7 +2494,7 @@ def main() -> int:
             log("FAILED: anchor")
             return 1
 
-    # -- 5. the warm lattice wall (the kernels are timed in phase 11:
+    # -- 5. the warm lattice wall (the kernels are timed in phase 12:
     # kernel launches run slower after a profiler session)
     walls = []
     for _ in range(3):
@@ -2177,7 +2526,16 @@ def main() -> int:
     time_layout(card)
     sparse_path(cfgs, gpu, card)
 
-    # -- 10. the serving path at full width, counted, and the card against
+    # -- 10. the gradient path: t_cell_grad_fn under autograd on the card
+    # (counted, held to the CPU, central differences, the sparse engine),
+    # then OptimizeQuery through the query API; walls and op counts
+    grads = grad_path(cfgs, card)
+    if grads["launches"] != n_groups:
+        log(f"FAILED: gradient path scan launches {grads['launches']}")
+        return 1
+    optimize_path(card)
+
+    # -- 11. the serving path at full width, counted, and the card against
     # the CPU at full width and reduced depth
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -2195,7 +2553,7 @@ def main() -> int:
     served_f32 = serve_path_f32(dev, card)
     parity_launches = serve_cpu_parity(dev)
 
-    # -- 11. timing of the new paths and kernels, on the card (the walls
+    # -- 12. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
     time_paths(card)
     scan_t = time_scan(dev, group, banks, card)
@@ -2228,8 +2586,9 @@ def main() -> int:
     fa_times = time_flash(dev, card)
     profile_query(match_query(), "match", n_groups, card)
     profile_query(layout_query(), "layout sweep", n_groups, card)
+    profile_grad(cfgs, card)
 
-    # -- 12. summary lines
+    # -- 13. summary lines
     t16 = timings["B=16"]
     gj = new_times["gauss_jordan B=1"]
     gj_block = new_times["gauss_jordan block"]
@@ -2242,7 +2601,9 @@ def main() -> int:
         "launches": launches, "max_abs_err": max(scan_err.values()),
         "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
         "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        # the gradient path's forwards (phase 10), one per topology group
+        "grad_launches": grads["launches"]}, {
         # the one-step entry: the main path runs it 0 times, so its
         # launches are those of the phase-3 checks
         "name": "fused_newton", "route": "cuda",

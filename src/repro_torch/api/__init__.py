@@ -34,8 +34,8 @@ artifact cache (`api.store`), so evaluated tables and characterizations
 survive process restarts; `Session(leases=True)` coordinates workers
 that share a store (`api.leases`).
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP
-item: `OptimizeQuery` (item 11) and `CoDesignQuery` (item 12).
+Not ported yet, raising NotImplementedError naming its ROADMAP item:
+`CoDesignQuery` (item 12).
 """
 from repro_torch.api.executor import Executor, QueryFuture
 from repro_torch.api.leases import Lease, LeaseManager

@@ -38,8 +38,10 @@ elementwise, so union batching cannot perturb any point's value —
 asserted in tests/test_torch_api.py.
 
 The `geom` node (layout tier) verifies geometry on the host (numpy,
-`geom.verify.verify_bank`); the `optimize` node raises
-NotImplementedError naming ROADMAP Queue 1 item 11.
+`geom.verify.verify_bank`). The `optimize` node runs
+`optim.dse_opt.optimize` on the session's device; unlike the
+reference, it also files its result dict in the artifact store, so a
+session on a store another session wrote recomputes no optimization.
 
 Single-threaded by design: `flush()` (and therefore `Future.result()`
 on a pending future) runs the wave on the calling thread under a lock.
@@ -528,9 +530,26 @@ class Executor:
                     solver=n.spec["solver"], device=s.device)
             return s._reports[rkey]
         if n.kind == "optimize":
-            raise NotImplementedError(
-                "OptimizeQuery is not ported to repro_torch yet (ROADMAP "
-                "Queue 1 item 11 (differentiable DSE))")
+            # the result dict is a pure function of the node key, so it
+            # is stored like the other artifacts: a session on a store
+            # another session wrote recomputes nothing
+            got = self._store_decode(n.key, lambda s_, d: dict(d))
+            if got is not None:
+                return got
+            self.stats["optimize_calls"] += 1
+            sp = n.spec
+            from repro_torch.optim import dse_opt
+            r = dse_opt.optimize(
+                n.cfgs[0], target_freq_hz=sp["target_freq_hz"],
+                target_ret_s=sp["target_ret_s"],
+                objective=sp["objective"], knobs=sp["knobs"],
+                steps=sp["steps"], lr=sp["lr"],
+                seed_vdd_scales=sp["seed_vdd_scales"],
+                allow_refresh=sp["allow_refresh"],
+                seed_lattice=out[n.deps[0]], device=s.device)
+            got = r.as_dict()
+            self._store_put(n.key, lambda: got)
+            return got
         raise ValueError(f"unknown node kind {n.kind!r}")
 
     def eval_vdd_lattice(self, n: Node):

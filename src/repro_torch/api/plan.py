@@ -25,8 +25,7 @@ Evaluation knobs that cannot change the result (e.g. `batched`) stay
 OUT of the key and ride in `spec` instead.
 
 `CoDesignQuery` does not plan yet (its Profiles come from the workload
-profiler, ROADMAP Queue 1 item 12); the `optimize` node raises when
-executed (item 11).
+profiler, ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 

@@ -11,8 +11,7 @@ lowered by the planner (`repro_torch.api.plan`) instead.
 
 Every query constructs and validates as in the reference. What the port
 does not run yet raises NotImplementedError naming its ROADMAP item when
-a Session plans or executes it: `OptimizeQuery` (item 11) and
-`CoDesignQuery` (item 12).
+a Session plans it: `CoDesignQuery` (item 12).
 """
 from __future__ import annotations
 
@@ -195,8 +194,7 @@ class CoDesignQuery(Query):
 class OptimizeQuery(Query):
     """Gradient-based continuous design optimization of ONE gain-cell
     bank topology (projected Adam on the differentiable evaluator —
-    `optim.dse_opt` over `core.dse_grad`). Validated as in the
-    reference; running it waits for ROADMAP item 11.
+    `optim.dse_opt` over `core.dse_grad`), on the session's device.
 
     The discrete vdd ladder is demoted to a global SEED (it shares the
     session/store `vdd_lattice` artifacts); the continuous `knobs`

@@ -45,8 +45,8 @@ mirror the Query objects, so both styles work:
     Session().run(SweepQuery(cells=("gc2t_nn",)))
     Session().sweep(SweepQuery(cells=("gc2t_nn",)))
 
-`optimize` (ROADMAP Queue 1 item 11), `codesign` and `codesign_measured`
-(item 12) raise NotImplementedError until those items land.
+`codesign` and `codesign_measured` (ROADMAP Queue 1 item 12) raise
+NotImplementedError until that item lands.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from repro_torch._deferred import deferred
+import torch
+
 from repro_torch.core.spice import devices as dv
 from repro_torch.core.techfile import DeviceFlavor, TechFile
 
@@ -172,10 +173,64 @@ def with_write_vt(cell: Bitcell, flavor: str) -> Bitcell:
                    name=f"{cell.name}:{flavor}")
 
 
-# The traced twins of the electrical primitives (`*_t` in repro.core.cells)
-# serve the differentiable design-space exploration.
-_DSE_GRAD = "Queue 1 item 11 (differentiable DSE)"
-v_sn_written_t = deferred("cells.v_sn_written_t", _DSE_GRAD)
-i_read_t = deferred("cells.i_read_t", _DSE_GRAD)
-i_leak_rbl_t = deferred("cells.i_leak_rbl_t", _DSE_GRAD)
-sn_cap_t = deferred("cells.sn_cap_t", _DSE_GRAD)
+# ---------------------------------------------------------------------------
+# traced variants of the electrical primitives (core/dse_grad.py)
+#
+# The Bitcell methods above return Python floats and branch on scalar
+# comparisons, which cuts autograd. These twins compute the same algebra
+# in torch, with the continuous knobs (vdd, device widths) as float64
+# tensors so gradients flow; the discrete cell attributes stay Python
+# branches (static per cell).
+# ---------------------------------------------------------------------------
+
+def v_sn_written_t(cell: Bitcell, tech: TechFile, bit: int, vdd, *,
+                   wwlls=False, wwl_boost=0.55, creep=0.12):
+    """Traced twin of Bitcell.v_sn_written: the post-write SN level with
+    the operating voltage `vdd` as a tensor."""
+    wf = cell.wf(tech)
+    vdd = torch.as_tensor(vdd, dtype=torch.float64)
+    if bit == 0:
+        v = torch.zeros_like(vdd)
+    else:
+        v_wwl = vdd + (wwl_boost if wwlls else 0.0)
+        v = torch.minimum(vdd, v_wwl - wf.vt0 + creep)
+    v = v - cell.wwl_couple_ratio * vdd
+    if cell.rwl_active_high:
+        v = v + cell.rwl_couple_ratio * vdd
+    return v.clamp_min(0.0)
+
+
+def i_read_t(cell: Bitcell, tech: TechFile, v_sn, v_rbl, vdd, w_read):
+    """Traced twin of Bitcell.i_read: |I| onto the RBL, with vdd and the
+    read-device width as tensors."""
+    rf = cell.rf(tech)
+    v_rbl = torch.as_tensor(v_rbl, dtype=torch.float64)
+    if rf.polarity > 0:
+        i = dv.channel_current(rf, w_read, cell.l_read, v_sn, v_rbl,
+                               torch.zeros_like(v_rbl))
+    else:
+        i = dv.channel_current(rf, w_read, cell.l_read, v_sn, vdd, v_rbl)
+    return i.abs()
+
+
+def i_leak_rbl_t(cell: Bitcell, tech: TechFile, unselected_v_sn, vdd,
+                 w_read):
+    """Traced twin of Bitcell.i_leak_rbl (one unselected cell's off-state
+    RBL leakage)."""
+    rf = cell.rf(tech)
+    vdd = torch.as_tensor(vdd, dtype=torch.float64)
+    if rf.polarity > 0:
+        i = dv.channel_current(rf, w_read, cell.l_read, unselected_v_sn,
+                               vdd * 0.9, vdd)
+    else:
+        i = dv.channel_current(rf, w_read, cell.l_read, vdd, vdd * 0.1,
+                               torch.zeros_like(vdd))
+    return i.abs()
+
+
+def sn_cap_t(cell: Bitcell, tech: TechFile, w_read, w_write):
+    """Traced twin of Bitcell.sn_cap with both device widths as
+    tensors."""
+    rf, wf = cell.rf(tech), cell.wf(tech)
+    return (rf.cg_f_per_um * w_read + wf.cj_f_per_um * w_write
+            + tech.sn_wire_cap_f)

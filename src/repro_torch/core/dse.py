@@ -14,8 +14,9 @@ keeps the underlying models and reference implementations:
 
 Timing and power are float64 host algebra; retention runs in float32 on
 `device`, as in the compile flow (`core.retention`). The gradient-based
-co-optimization (`grad_optimize`, `evaluate_grad`, `evaluate_grad_fn`)
-waits for ROADMAP Queue 1 item 11.
+co-optimization: `grad_optimize` (float32 on `device`), and the
+differentiable twin of `evaluate` (`evaluate_grad`, `evaluate_grad_fn`,
+from `core.dse_grad`).
 """
 from __future__ import annotations
 
@@ -24,12 +25,15 @@ import warnings
 from dataclasses import dataclass
 from typing import List, Sequence
 
-from repro_torch._deferred import deferred
+import torch
+
 from repro_torch.core import power as power_mod
 from repro_torch.core import retention as ret_mod
 from repro_torch.core import timing as timing_mod
 from repro_torch.core.bank import BankConfig, build_bank
 from repro_torch.core.cells import CELLS
+from repro_torch.core.spice.devices import sigmoid
+from repro_torch.core.spice.mna import channel_current_raw
 from repro_torch.core.techfile import SYN40
 
 
@@ -250,9 +254,86 @@ def pareto(points: List[DesignPoint],
     return front
 
 
-# the differentiable twin of evaluate() and the gradient co-optimization
+# ---------------------------------------------------------------------------
+# gradient-based co-optimization (paper §VI future work, realized)
+# ---------------------------------------------------------------------------
+
+# the differentiable twin of evaluate() lives in dse_grad; callers reach
+# it as dse.evaluate_grad. The projected-Adam optimizer over it is
+# repro_torch.optim.dse_opt (the OptimizeQuery engine).
 from repro_torch.core.dse_grad import (evaluate_grad,  # noqa: E402,F401
                                        evaluate_grad_fn)
 
-grad_optimize = deferred("dse.grad_optimize",
-                         "Queue 1 item 11 (differentiable DSE)")
+
+def grad_optimize(cell_name="gc2t_nn", *, target_ret_s=1e-4,
+                  target_freq_hz=None, steps=300, lr=0.02, tech=SYN40,
+                  verbose=False, device="cuda") -> dict:
+    """Continuously optimize (write-VT, write width, WWL boost) to MEET a
+    retention target while maximizing read current (speed) and minimizing
+    cell area: gradient descent through the differentiable retention
+    integral (`retention.leak_fn` with its vt0= and w= overrides) and the
+    device model, in float32 on `device` as the reference runs it.
+    Returns the optimized design and its retention at that point."""
+    f32 = dict(dtype=torch.float32, device=torch.device(device))
+    cell = CELLS[cell_name]
+    wf = cell.wf(tech)
+    c_sn_base = cell.sn_cap(tech)
+    v_m = ret_mod._margin_voltage(cell, tech)
+    vdd = tech.vdd
+    fn = ret_mod.leak_fn(cell, tech, device)
+    pol = torch.tensor(float(wf.polarity), **f32)
+    l_w = torch.tensor(float(cell.l_write), **f32)
+    log_target = torch.log(torch.tensor(target_ret_s, **f32))
+
+    def unpack(theta):
+        vt = 0.25 + 0.62 * sigmoid(theta[0])       # 0.25..0.87 V
+        w_w = 0.06 + 0.32 * sigmoid(theta[1])      # 0.06..0.38 um
+        boost = 0.8 * sigmoid(theta[2])            # 0..0.8 V
+        return vt, w_w, boost
+
+    def retention_of(vt, w_w, boost):
+        c_sn = c_sn_base + wf.cj_f_per_um * (w_w - cell.w_write)
+        v0 = torch.minimum(torch.tensor(vdd, **f32),
+                           vdd + boost - vt + 0.12) \
+            - cell.wwl_couple_ratio * vdd
+        vs = ret_mod._linspace(v_m, torch.maximum(
+            v0, torch.tensor(v_m + 1e-3, **f32)), 512, device)
+        inv = 1.0 / fn(vs, vt0=vt, w=w_w).clamp_min(1e-30)
+        return c_sn * torch.trapezoid(inv, vs)
+
+    def speed_of(vt, w_w, boost):
+        # write-limited component: on-current into SN at boosted gate
+        i_on = channel_current_raw(
+            pol, vt, wf.n_slope, wf.k_prime, wf.lambda_, w_w, l_w,
+            vdd + boost, torch.tensor(vdd, **f32),
+            torch.tensor(vdd * 0.45, **f32))
+        return i_on.abs()
+
+    def loss(theta):
+        vt, w_w, boost = unpack(theta)
+        ret = retention_of(vt, w_w, boost)
+        spd = speed_of(vt, w_w, boost)
+        area = w_w + 0.35 * boost            # normalized area proxy (ring)
+        pen = torch.relu(log_target - torch.log(ret)) ** 2
+        return 8.0 * pen - 0.5 * torch.log(spd) + 0.3 * area
+
+    theta = torch.zeros((3,), **f32)
+    m = torch.zeros_like(theta)
+    v = torch.zeros_like(theta)
+    hist = []
+    for i in range(steps):
+        x = theta.detach().requires_grad_()
+        lval = loss(x)
+        (g,) = torch.autograd.grad(lval, x)
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        theta = theta - lr * m / (torch.sqrt(v) + 1e-8)
+        if verbose and i % 50 == 0:
+            hist.append(float(lval.detach()))
+    with torch.no_grad():
+        vt, w_w, boost = (float(x) for x in unpack(theta))
+        ret = float(retention_of(*(torch.tensor(x, **f32)
+                                   for x in (vt, w_w, boost))))
+    return {"write_vt": vt, "w_write_um": w_w, "wwl_boost": boost,
+            "retention_s": ret, "target_ret_s": target_ret_s,
+            "met": ret >= target_ret_s * 0.95, "loss_history": hist}

@@ -33,7 +33,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch._deferred import deferred
 from repro_torch.core import timing as timing_mod
 from repro_torch.core.bank import BankConfig, build_bank
 from repro_torch.core.dse_batch import (group_by_topology, pad_bucket,
@@ -202,8 +201,152 @@ def _characterize_group(cfgs: List[BankConfig], banks, *, n_seg: int,
     return out
 
 
-t_cell_grad_fn = deferred("char_batch.t_cell_grad_fn",
-                          "Queue 1 item 11 (differentiable DSE)")
+def t_cell_grad_fn(cfg: BankConfig, *, n_seg: int = 8, n_steps: int = 300,
+                   solver: str = "pallas", precision: str = "f64",
+                   device="cuda"):
+    """Differentiable transient read characterization of ONE topology.
+
+    Returns `fn(knobs) -> (t_cell_s (B,), valid (B,))` where `knobs` maps
+    any subset of the continuous design knobs to (B,) float64 tensors on
+    `device`:
+
+      vdd_scale     array operating voltage multiplier (techfile
+                    `with_vdd_scale` semantics: rails, written SN level
+                    and stimulus levels scale; sense swing does not)
+      w_read_scale  read-device width multiplier (device current + its
+                    gate/junction caps + the bitline junction load)
+      bl_wire_scale bitline wire WIDTH multiplier (ladder conductance
+                    scales up, wire capacitance scales up)
+
+    Every knob flows through the MNA assembly, the stimulus waves and the
+    implicit-function VJP of the Newton solve, so `torch.autograd.grad`
+    of any reduction of t_cell_s is one adjoint solve per timestep, not a
+    differentiated unroll. With solver="pallas" the forward is one launch
+    of the fused Newton scan kernel on the card. Discretization constants
+    (t0, t_end, step count) are pinned at the NOMINAL design point: they
+    are solver settings, not physics, and freezing them keeps the
+    objective smooth. Gain cells only; solver "pallas" or "sparse" (the
+    dense "jnp" path takes no device-parameter overrides).
+    """
+    if solver not in ("pallas", "sparse"):
+        raise ValueError(f"solver {solver!r} not differentiable here "
+                         "(use 'pallas' or 'sparse')")
+    bank0 = build_bank(cfg)
+    if not bank0.is_gc:
+        raise ValueError(f"cell {cfg.cell!r} has no single-ended read "
+                         "column to characterize")
+    tech = cfg.tech
+    cell = bank0.cell
+    key = topology_key(cfg) + (n_seg, n_steps, solver, precision,
+                               str(torch.device(device)))
+    system, tr, res_stamps, cap_stamps, src_G, meta = _pipeline(bank0, key)
+    dev = system.G.device
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    # -- nominal element values + cap-class decomposition. read_netlist
+    # appends, in order: 4 precharge-device caps (fixed w=1.2), n_seg
+    # ladder caps (c_bl/n_seg each), the SA input cap, 4 read-device caps
+    # (each proportional to w_read). Check that layout before relying on
+    # it.
+    ckt0, _ = timing_mod.read_netlist(bank0, n_seg=n_seg)
+    g0 = np.array([g for _, _, g in ckt0.res])          # conductances
+    c0 = np.array([c for _, _, c in ckt0.caps])
+    assert len(g0) == n_seg and len(c0) == n_seg + 9, \
+        "read_netlist element layout changed; update t_cell_grad_fn"
+    from repro_torch.core import bank as bank_mod
+    r_bl0, c_bl0 = bank_mod.bitline_rc(bank0)
+    rf = cell.rf(tech)
+    # Python floats: a numpy scalar times a tensor would leave autograd
+    c_junc0 = float(bank0.rows * rf.cj_f_per_um * cell.w_read)  # ~ w_read
+    c_wire0 = float(c_bl0) - c_junc0                     # ~ bl width
+    np.testing.assert_allclose(g0, n_seg / r_bl0, rtol=1e-9)
+    np.testing.assert_allclose(c0[4:4 + n_seg], c_bl0 / n_seg, rtol=1e-9)
+
+    d_rd = next(i for i, d in enumerate(ckt0.devs) if d["name"] == "read_dev")
+    w0 = [float(d["w"]) for d in ckt0.devs]
+
+    # -- static discretization (from the nominal analytic estimate)
+    t_an0 = timing_mod.cell_read_time(bank0)[0]
+    t_end = max(timing_mod.T_END_OVER_ANALYTIC * t_an0,
+                timing_mod.T_END_MIN_S)
+    t0 = timing_mod.T0_FRACTION * t_end
+    # wave TIME grids are static (the stimulus recipe of read_stimulus,
+    # edge-padded to 3 knots); LEVELS are rebuilt per point below
+    wt1 = torch.tensor([[0.0, t0, t0 * 1.2],
+                        [0.0, t0 * 0.8, t0],
+                        [0.0, 1.0, 1.0],
+                        [0.0, 1.0, 1.0]], **f64)
+    bit = 0 if cell.read_on_sn_low else 1
+    swing = tech.v_sense_se
+    n = system.n
+    g0_t = torch.as_tensor(g0, **f64)
+    c0_t = torch.as_tensor(c0, **f64)
+    res_t = torch.as_tensor(res_stamps, **f64)
+    cap_t = torch.as_tensor(cap_stamps, **f64)
+    src_t = torch.as_tensor(src_G, **f64)
+    n_seg_t = torch.tensor(float(n_seg), **f64)
+
+    from repro_torch.core import cells as cells_mod
+
+    def fn(knobs):
+        some = torch.as_tensor(next(iter(knobs.values())))
+        B = some.shape[0]
+        one = torch.ones((B,), **f64)
+
+        def knob(name):
+            return torch.as_tensor(knobs.get(name, one), **f64)
+
+        s_v, s_w, s_bl = (knob(k) for k in ("vdd_scale", "w_read_scale",
+                                            "bl_wire_scale"))
+        # linear elements: ladder conductance ~ wire width; ladder cap =
+        # wire part ~ width + junction part ~ w_read; device caps of the
+        # read transistor ~ w_read; precharge-device + SA caps fixed
+        g_vals = g0_t[None, :] * s_bl[:, None]
+        c_lad = (c_wire0 * s_bl + c_junc0 * s_w)[:, None] / n_seg_t
+        c_vals = torch.cat([
+            c0_t[:4].expand(B, 4),
+            c_lad.expand(B, n_seg),
+            c0_t[4 + n_seg].expand(B, 1),
+            c0_t[None, 4 + n_seg + 1:] * s_w[:, None],
+        ], dim=1)
+        G_b = src_t[None] + torch.einsum("br,rij->bij", g_vals, res_t)
+        C_b = torch.einsum("bc,cij->bij", c_vals, cap_t)
+
+        # stimulus levels (same recipe as timing.read_stimulus)
+        vdd = tech.vdd * s_v
+        zero = torch.zeros_like(vdd)
+        v_sn = cells_mod.v_sn_written_t(cell, tech, bit, vdd,
+                                        wwlls=cfg.wwlls,
+                                        wwl_boost=cfg.wwl_boost)
+        rwl_idle = zero if cell.rwl_active_high else vdd
+        rwl_act = vdd if cell.rwl_active_high else zero
+        v_pre = zero if cell.predischarge else vdd
+        en_idle = vdd if cell.predischarge else zero
+        en_off = zero if cell.predischarge else vdd
+        wv = torch.stack([
+            torch.stack([rwl_idle, rwl_idle, rwl_act], dim=1),
+            torch.stack([en_idle, en_idle, en_off], dim=1),
+            torch.stack([v_sn, v_sn, v_sn], dim=1),
+            torch.stack([vdd, vdd, vdd], dim=1),
+        ], dim=1)
+        wt = wt1[None].expand(B, 4, 3)
+
+        w_b = torch.stack([w0[d] * s_w if d == d_rd
+                           else torch.full((B,), w0[d], **f64)
+                           for d in range(len(w0))], dim=1)
+        v0 = v_pre[:, None].expand(B, n)
+        res = tr.run_lattice(wt, wv, torch.full((B,), t_end, **f64),
+                             n_steps,
+                             over_batches={"G": G_b, "C": C_b, "w": w_b},
+                             v0=v0)
+        # per-point sense target via a trace shift (crossing_time takes a
+        # scalar target)
+        target = v_pre + (swing if cell.predischarge else -swing)
+        tc, valid = crossing_time(res["t"], res["rbl_near"] - target[:, None],
+                                  0.0, rising=cell.predischarge)
+        return tc - t0, valid
+
+    return fn
 
 
 def characterize(cfgs: Sequence[BankConfig], *, n_steps: int = 300,

@@ -413,10 +413,12 @@ class Transient:
         src = self.src_sequence(te, wt, wv, n_steps)
         params = pack_params(self.system.dev, B, cdt, dev_over)
         v = v0.to(sdt).expand(B, n)
-        vs = torch.empty((B, n_steps, n), dtype=sdt, device=te.device)
+        vs = []
         for t in range(n_steps):
             rhs = sps.coo_matvec(sp, coh, v.to(cdt)) + src[:, t]
             v = sps.newton_solve_implicit(spec, self.iters, self.tol,
                                           j_const, rhs, params, v)
-            vs[:, t] = v
-        return vs
+            vs.append(v)
+        # stacked once: slice writes into one buffer would chain a copy
+        # of the whole trajectory's gradient per step in the backward
+        return torch.stack(vs, dim=1)

@@ -39,13 +39,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch._deferred import deferred
-from repro_torch.core.spice.mna import G_MIN, channel_current_and_grads
+from repro_torch.core.spice.mna import (G_MIN, channel_current_and_grads,
+                                        channel_current_raw)
 from repro_torch.kernels.batched_solve.sparse import (PARAM_FIELDS, PRECISIONS,
                                                       pack_params)
 
 __all__ = ["FusedSpec", "build_fused_spec", "precompute", "make_fused_iter",
-           "newton_solve", "newton_solve_fixed", "pack_params"]
+           "newton_solve", "newton_solve_fixed", "pack_params",
+           "residual", "fixed_point_adjoint", "adjoint_operator",
+           "residual_vjp"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -302,6 +304,133 @@ def newton_solve_fixed(spec: FusedSpec, pre, Krhs, params, v0,
     return v
 
 
-_DSE_GRAD = "Queue 1 item 11 (differentiable DSE)"
-residual = deferred("newton.residual", _DSE_GRAD)
-fixed_point_adjoint = deferred("newton.fixed_point_adjoint", _DSE_GRAD)
+def _gather_safe(x, idx):
+    """(B, n) -> (B, n_dev) terminal values via a padded gather; ground
+    terminals (index n) read the zero pad column. `idx` is a host index
+    array (the spec's `*_safe` maps) or a long tensor."""
+    return _gather(x, torch.as_tensor(idx, dtype=torch.long,
+                                      device=x.device))
+
+
+def residual(spec: FusedSpec, pre, Krhs, params, v):
+    """Preconditioned backward-Euler residual F(v) = v - K rhs
+    + (K Pa) i_ab(v) + (K Pg) i_g(v), whose root is the converged Newton
+    state (the iteration's update is dv = M^-1 F, so dv = 0 iff F = 0).
+    Elementwise torch with no freeze masks or loops: the
+    implicit-function adjoint differentiates this function with respect
+    to the data inputs, never the loop that located the root. The casts
+    to the compute dtype happen inside, so autograd hands back cotangents
+    in the caller's dtypes (params stays float32 under "mixed")."""
+    _, cdt = spec.dtypes
+    vc = v.to(cdt)
+    out = vc - Krhs.to(cdt)
+    if spec.n_dev == 0:
+        return out
+    vg = _gather_safe(vc, spec.g_safe)
+    va = _gather_safe(vc, spec.a_safe)
+    vb = _gather_safe(vc, spec.b_safe)
+    p = params.to(cdt)
+    i_ab = channel_current_raw(
+        *(p[:, i] for i in range(len(PARAM_FIELDS))), vg, va, vb)
+    gg = p[:, len(PARAM_FIELDS)]
+    i_g = gg * (vg - 0.5 * (va + vb))
+    return (out
+            + torch.einsum("bid,bd->bi", pre["KPa"].to(cdt), i_ab)
+            + torch.einsum("bid,bd->bi", pre["KPg"].to(cdt), i_g))
+
+
+def _adjoint_lam(spec: FusedSpec, pre, params, v_star, v_bar):
+    """lam = M^-T v_bar with M = dF/dv = I + KU D Vm at the root v_star:
+    one Woodbury solve against the transposed capacitance matrix,
+
+        M^-T = I - Vm^T D^T A^-T KU^T,        A = I + D S,
+
+    where A is the (B, k, k) matrix `make_fused_iter` builds, assembled
+    here at v_star. Returns lam (B, n) in the compute dtype."""
+    _, cdt = spec.dtypes
+    n_dev, k = spec.n_dev, spec.k
+    vb_c = v_bar.to(cdt)
+    if n_dev == 0:
+        return vb_c
+    B = v_star.shape[0]
+    vc = v_star.to(cdt)
+    safe = [torch.as_tensor(s, dtype=torch.long, device=vc.device)
+            for s in (spec.g_safe, spec.a_safe, spec.b_safe)]
+    vg, va, vb = (_gather(vc, s) for s in safe)
+    p = params.to(cdt)
+    _, di_dvg, di_dva, di_dvb = channel_current_and_grads(
+        *(p[:, i] for i in range(len(PARAM_FIELDS))), vg, va, vb)
+    gg = p[:, len(PARAM_FIELDS)]
+    d3 = torch.stack([di_dvg, di_dva, di_dvb], dim=2)      # (B, n_dev, 3)
+    Sb = pre["Sb"].to(cdt)
+    d3S = torch.einsum("bdj,bdjk->bdk", d3, Sb)
+    egS = (Sb[:, :, 0] - 0.5 * Sb[:, :, 1] - 0.5 * Sb[:, :, 2]) \
+        * gg[:, :, None]
+    DS = torch.stack([d3S - 0.5 * egS, -d3S - 0.5 * egS, egS],
+                     dim=2).reshape(B, k, k)
+    A = torch.eye(k, dtype=cdt, device=vc.device)[None] + DS
+    # lam = vbar - Vm^T D^T (A^T)^-1 KU^T vbar
+    y = torch.einsum("bnk,bn->bk", pre["KU"].to(cdt), vb_c)
+    u = _solve_small(A.transpose(1, 2), y, n_dev)
+    u3 = u.reshape(B, n_dev, 3)            # rows (a, b, g) of Um columns
+    sau = u3[:, :, 0] - u3[:, :, 1]                          # s_a . u
+    sgu = u3[:, :, 2] - 0.5 * (u3[:, :, 0] + u3[:, :, 1])    # s_g . u
+    # D^T u over D's column order (g, a, b):
+    #   d3 * (s_a . u) + gg * e_g * (s_g . u)
+    ggs = gg * sgu
+    dtu = d3 * sau[:, :, None] \
+        + torch.stack([ggs, -0.5 * ggs, -0.5 * ggs], dim=2)
+    corr = vc.new_zeros((B, spec.n + 1))
+    for j, s in enumerate(safe):
+        corr = corr.index_add(1, s, dtu[:, :, j])
+    return vb_c - corr[:, :spec.n]
+
+
+def adjoint_operator(spec: FusedSpec, pre, params, v_star):
+    """W (B, n, n) = M^-T at the root v_star, so that the adjoint of a
+    cotangent v_bar is lam = W @ v_bar: the Woodbury solve of
+    `_adjoint_lam` applied to the n unit vectors, one replicated lane
+    each. The scan's backward forms W for every step at once, leaving
+    only a matrix-vector recurrence to run in time order."""
+    _, cdt = spec.dtypes
+    B, n = v_star.shape
+    rep = lambda x: x.repeat_interleave(n, dim=0)   # noqa: E731
+    eye = torch.eye(n, dtype=cdt, device=v_star.device).repeat(B, 1)
+    lam = _adjoint_lam(spec, {"KU": rep(pre["KU"]), "Sb": rep(pre["Sb"])},
+                       rep(params), rep(v_star), eye)
+    return lam.reshape(B, n, n).transpose(1, 2)
+
+
+def residual_vjp(spec: FusedSpec, pre, Krhs, params, v_star, lam):
+    """theta_bar = -(dF/dtheta)^T lam at the root: one autograd VJP of
+    `residual` with respect to (pre, Krhs, params), v_star held fixed.
+    Returns (pre_bar dict over pre's keys, Krhs_bar, params_bar); a
+    pre entry the residual does not read gets zeros."""
+    with torch.enable_grad():
+        pre_l = {k: x.detach().requires_grad_() for k, x in pre.items()}
+        krhs_l = Krhs.detach().requires_grad_()
+        par_l = params.detach().requires_grad_()
+        F = residual(spec, pre_l, krhs_l, par_l, v_star.detach())
+        leaves = list(pre_l.values()) + [krhs_l, par_l]
+        grads = torch.autograd.grad(F, leaves, grad_outputs=-lam,
+                                    allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return dict(zip(pre_l, grads[:len(pre_l)])), grads[-2], grads[-1]
+
+
+def fixed_point_adjoint(spec: FusedSpec, pre, Krhs, params, v_star, v_bar):
+    """Implicit-function VJP through the converged Newton solve.
+
+    At the fixed point F(v*, theta) = 0 (theta = the data inputs pre /
+    Krhs / params), the implicit function theorem gives
+    dv*/dtheta = -M^-1 dF/dtheta with M = dF/dv = I + KU D Vm, the same
+    rank-k structure the forward iteration inverts. The adjoint
+    lam = M^-T vbar costs one Woodbury solve against the transposed
+    capacitance matrix (`_adjoint_lam`), and theta_bar = -(dF/dtheta)^T
+    lam is one VJP of `residual` at the root (`residual_vjp`). Returns
+    (pre_bar, Krhs_bar, params_bar). The v0 cotangent is zero: the root
+    does not depend on the initial guess, which makes the VJP independent
+    of the iteration count past convergence."""
+    lam = _adjoint_lam(spec, pre, params, v_star, v_bar)
+    return residual_vjp(spec, pre, Krhs, params, v_star, lam)

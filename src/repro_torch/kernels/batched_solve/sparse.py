@@ -184,6 +184,17 @@ def transpose_perm(sched: LUSchedule) -> np.ndarray:
     return perm
 
 
+def _transpose_index(sched: LUSchedule, device) -> torch.Tensor:
+    """`transpose_perm` as a long tensor on `device`, kept in
+    `sched.device_maps`."""
+    key = ("transpose", str(device))
+    got = sched.device_maps.get(key)
+    if got is None:
+        got = sched.device_maps[key] = torch.as_tensor(
+            transpose_perm(sched), dtype=torch.long, device=device)
+    return got
+
+
 def _indices(obj, device, build):
     """The index tensors `build` makes from `obj`'s host maps, on
     `device`, kept in `obj.device_maps` (one entry per device)."""
@@ -444,26 +455,45 @@ def _jac_vals(spec: NewtonSpec, j_const, params, v):
 
 
 class _NewtonSolveImplicit(torch.autograd.Function):
-    """Forward: `newton_solve`. The backward (one transposed symbolic-LU
-    solve at the root, by the implicit function theorem) belongs to the
-    differentiable DSE and is not ported yet."""
+    """Forward: `newton_solve`. Backward: one transposed symbolic-LU
+    solve at the root, by the implicit function theorem,
+
+        lam = J(v*)^-T vbar,   theta_bar = -(dF/dtheta)^T lam,
+
+    through `transpose_perm` on the same schedule, then one VJP of
+    `sparse_residual` at the root, in plain torch on the tensors'
+    device. The v0 cotangent is zero: the root does not depend on the
+    initial guess."""
 
     @staticmethod
     def forward(ctx, spec, iters, tol, j_const, rhs, params, v0):
-        return newton_solve(spec, j_const, rhs, params, v0, iters, tol)[0]
+        v = newton_solve(spec, j_const, rhs, params, v0, iters, tol)[0]
+        ctx.spec = spec
+        ctx.save_for_backward(j_const, rhs, params, v)
+        return v
 
     @staticmethod
     def backward(ctx, v_bar):
-        raise NotImplementedError(
-            "the backward of sparse.newton_solve_implicit is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 11 (differentiable DSE))")
+        j_const, rhs, params, v_star = ctx.saved_tensors
+        spec = ctx.spec
+        _, cdt = spec.dtypes
+        jvals = _jac_vals(spec, j_const, params, v_star)
+        perm = _transpose_index(spec.sched, v_star.device)
+        lam = factor_solve(spec.sched, jvals[:, perm], v_bar.to(cdt))
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_()
+                      for x in (j_const, rhs, params)]
+            F = sparse_residual(spec, *leaves, v_star.detach())
+            grads = torch.autograd.grad(F, leaves, grad_outputs=-lam)
+        return (None, None, None) + tuple(grads) + (None,)
 
 
 def newton_solve_implicit(spec: NewtonSpec, iters: int, tol: float,
                           j_const, rhs, params, v0):
-    """The sparse-Newton solve of one step: the root of
-    `sparse_residual`. Its gradient (the reference's implicit-function
-    VJP) waits for ROADMAP Queue 1 item 11; the backward raises."""
+    """The sparse-Newton solve of one step, differentiable: the root of
+    `sparse_residual`, with the implicit-function VJP of the reference
+    (one extra factor and solve against J^T instead of a differentiated
+    unroll, independent of the iteration count past convergence)."""
     return _NewtonSolveImplicit.apply(spec, iters, tol, j_const, rhs,
                                       params, v0)
 

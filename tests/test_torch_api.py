@@ -343,14 +343,13 @@ def test_deferred_queries_name_their_item():
                 wwlls=(False,))
     prof = Profile("llama", "decode", "decode", 2e-3, 1e9, 1e8, 1e6, 1.0,
                    1e-3, 1e-6, 3e8, 8e8)
-    for query, item in (
-            (api.OptimizeQuery(), "item 11"),
-            (api.CoDesignQuery((prof,)), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            s.run(query)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        s.run(api.CoDesignQuery((prof,)))
     with pytest.raises(NotImplementedError, match="item 12"):
         s.codesign_measured([], None)
-    # the layout tier (item 10) and the sparse engine (item 4) run now
+    # the layout tier (item 10), the sparse engine (item 4) and
+    # OptimizeQuery (item 11) run now
+    assert s.run(api.OptimizeQuery(steps=2)).raw["evals"]["grad_steps"] == 2
     for fidelity, solver in (("layout", "pallas"), ("transient", "sparse")):
         t = s.run(api.SweepQuery(**tiny, fidelity=fidelity, solver=solver,
                                  sim_steps=20))
@@ -361,6 +360,54 @@ def test_deferred_queries_name_their_item():
         api.OptimizeQuery(knobs=("bogus",))
     with pytest.raises(ValueError):
         api.MatchQuery(demands(dse)[:1] * 2)
+
+
+# the README's quickstart query
+README_OPTIMIZE = dict(cell="gc2t_np", target_freq_hz=5e8, target_ret_s=5e-5,
+                       knobs=("vdd_scale", "w_read_scale"))
+
+
+def test_optimize_query_matches_reference(tmp_path):
+    """`OptimizeQuery` through the port's Session against the reference
+    Session under x64 (limits as in tests/test_torch_optimize.py: the
+    seed rung's objective 2e-6, everything else 1e-6 or equal); the
+    result writes like the reference's; a fresh session on the store the
+    first wrote optimizes and evaluates nothing and returns the same
+    dict; the same query again is the same object."""
+    rs, (want,) = ref_run([ref_api.OptimizeQuery(**README_OPTIMIZE)])
+    want = want.as_dict()
+    s = api.Session(device="cpu", store=str(tmp_path / "store"))
+    got = s.run(api.OptimizeQuery(**README_OPTIMIZE))
+    assert isinstance(got, api.OptimizeResult) and got.met
+    d = got.as_dict()
+    assert d.keys() == want.keys()
+    for k, w in want.items():
+        if k in ("knobs", "outputs"):
+            for kk, ww in w.items():
+                assert d[k][kk] == pytest.approx(ww, rel=1e-6), (k, kk)
+        elif k == "loss_history":
+            np.testing.assert_allclose(d[k], w, rtol=1e-6)
+        elif k == "seed_objective_value":
+            assert d[k] == pytest.approx(w, rel=2e-6)
+        elif isinstance(w, float):
+            assert d[k] == pytest.approx(w, rel=1e-6), k
+        else:
+            assert d[k] == w, k
+    assert s.executor.stats["optimize_calls"] == 1
+    assert s.executor.stats["vdd_evals"] == 1
+    assert rs.executor.stats["optimize_calls"] == 1
+    assert s.run(api.OptimizeQuery(**README_OPTIMIZE)) is got
+    assert s.optimize(api.OptimizeQuery(**README_OPTIMIZE)) is got
+    out = got.write(str(tmp_path / "out"))
+    assert json.load(open(tmp_path / "out" / got.filename)) == \
+        json.loads(json.dumps(d))
+    assert out == str(tmp_path / "out")
+    fresh = api.Session(device="cpu", store=str(tmp_path / "store"))
+    again = fresh.run(api.OptimizeQuery(**README_OPTIMIZE))
+    assert again.as_dict() == d
+    assert fresh.executor.stats["optimize_calls"] == 0
+    assert fresh.executor.stats["vdd_evals"] == 0
+    assert fresh.executor.stats["store_hits"] == 2
 
 
 def test_compose_codesign_and_vdd_lattice_match_reference():

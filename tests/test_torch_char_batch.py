@@ -92,8 +92,14 @@ def test_non_gain_cells_and_deferred_paths():
                                rtol=RTOL_F64)
     with pytest.raises(ValueError):
         char_batch.characterize([], parasitics="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        char_batch.t_cell_grad_fn(BankConfig())
+    # t_cell_grad_fn runs now (tests/test_torch_grad_dse.py); it refuses
+    # what the reference refuses
+    with pytest.raises(ValueError, match="single-ended"):
+        char_batch.t_cell_grad_fn(BankConfig(16, 16, cell="sram6t"),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="not differentiable"):
+        char_batch.t_cell_grad_fn(BankConfig(16, 16), solver="jnp",
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("solver", ["jnp", "sparse"])

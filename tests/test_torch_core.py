@@ -10,8 +10,10 @@ if not hasattr(jax.experimental, "enable_x64"):   # removed in JAX 0.9
     jax.experimental.enable_x64 = \
         lambda new_val=True: jax.enable_x64(new_val)
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from repro.core import bank as ref_bank  # noqa: E402
 from repro.core import cells as ref_cells  # noqa: E402
@@ -129,9 +131,40 @@ def test_interop_round_trips_reference_configs():
 
 
 def test_deferred_parts_name_their_roadmap_item():
-    for fn in (dse.grad_optimize, cells.v_sn_written_t, dse.evaluate_grad):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    # the traced cell twins (deferred until item 11) equal the reference's
+    # under x64 for every gain cell, over a vdd and width sweep
+    vdd = np.linspace(0.6, 1.4, 7)
+    w = np.linspace(0.05, 0.4, 7)
+    for name, cell in cells.CELLS.items():
+        if not hasattr(cell, "read_on_sn_low"):
+            continue
+        ref_cell = ref_cells.CELLS[name]
+        for bit, wwlls in ((0, False), (1, False), (1, True)):
+            with jax.enable_x64(True):
+                v_sn = ref_cells.v_sn_written_t(
+                    ref_cell, ref_techfile.SYN40, bit, jnp.asarray(vdd),
+                    wwlls=wwlls)
+                want = [np.asarray(x) for x in (
+                    v_sn,
+                    ref_cells.i_read_t(ref_cell, ref_techfile.SYN40, v_sn,
+                                       0.5 * jnp.asarray(vdd),
+                                       jnp.asarray(vdd), jnp.asarray(w)),
+                    ref_cells.i_leak_rbl_t(ref_cell, ref_techfile.SYN40,
+                                           v_sn, jnp.asarray(vdd),
+                                           jnp.asarray(w)),
+                    ref_cells.sn_cap_t(ref_cell, ref_techfile.SYN40,
+                                       jnp.asarray(w), 2 * jnp.asarray(w)))]
+            tv, tw = torch.tensor(vdd), torch.tensor(w)
+            p_sn = cells.v_sn_written_t(cell, techfile.SYN40, bit, tv,
+                                        wwlls=wwlls)
+            got = [p_sn,
+                   cells.i_read_t(cell, techfile.SYN40, p_sn, 0.5 * tv, tv,
+                                  tw),
+                   cells.i_leak_rbl_t(cell, techfile.SYN40, p_sn, tv, tw),
+                   cells.sn_cap_t(cell, techfile.SYN40, tw, 2 * tw)]
+            for g, wnt in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), wnt, rtol=1e-12,
+                                           atol=0, err_msg=name)
     # timing.analyze(parasitics="extracted") is ported (layout tier): it
     # equals the x64 reference
     b = bank.build_bank(bank.BankConfig(16, 16))

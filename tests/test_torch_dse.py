@@ -28,6 +28,7 @@ if not hasattr(jax.experimental, "enable_x64"):   # removed in JAX 0.9
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from repro.core import dse as ref_dse  # noqa: E402
 from repro.core import dse_batch as ref_dse_batch  # noqa: E402
@@ -277,10 +278,16 @@ def test_pareto_multibank_and_shims_match_reference():
 
 
 def test_deferred_gradient_parts_name_item_11():
+    """Item 11 has landed: the gradient parts run (their parity tests are
+    tests/test_torch_grad_dse.py and tests/test_torch_optimize.py), and
+    the knob and output names still match the reference."""
     from repro_torch.core import dse_grad
     from repro.core import dse_grad as ref_dse_grad
     assert dse_grad.KNOBS == ref_dse_grad.KNOBS
     assert dse_grad.OUTPUTS == ref_dse_grad.OUTPUTS
-    for fn in (dse.grad_optimize, dse.evaluate_grad, dse.evaluate_grad_fn):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            fn("gc2t_nn")
+    assert dse.evaluate_grad is dse_grad.evaluate_grad
+    out = dse.evaluate_grad(BankConfig(16, 16, cell="gc2t_nn"),
+                            {"vdd_scale": torch.ones(2, dtype=torch.float64)},
+                            device="cpu")
+    assert set(out) == set(dse_grad.OUTPUTS)
+    assert all(v.shape == (2,) for v in out.values())

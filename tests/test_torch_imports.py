@@ -49,7 +49,8 @@ def test_port_has_modules():
                  "api/executor.py", "api/session.py", "geom/__init__.py",
                  "geom/grid.py", "geom/extract.py", "geom/placer.py",
                  "geom/router.py", "geom/verify.py",
-                 "kernels/batched_solve/sparse.py"):
+                 "kernels/batched_solve/sparse.py", "optim/__init__.py",
+                 "optim/optimizers.py", "optim/dse_opt.py"):
         assert need in names
     for src in ("fused_newton", "gauss_jordan", "gc_array_step",
                 "flash_attention", "flash_attention_tc"):

@@ -574,3 +574,88 @@ def test_sparse_sweep_on_the_card(cuda):
     cpu = characterize(lattice_configs(**q), solver="sparse", device="cpu")
     np.testing.assert_allclose([c.t_cell_s for c in t.transient],
                                [c.t_cell_s for c in cpu], rtol=1e-9)
+
+
+# -- the differentiable DSE path ---------------------------------------------
+# the scan's backward (the implicit-function adjoint, plain torch) on the
+# card against the same Function on the CPU, from the same operands. The
+# limits follow the forward's (SCAN_ATOL): at f64 both runs are float64
+# to round-off; mixed and f32 store the trajectory in float32, where one
+# flipped rounding in the forward moves the roots the backward starts
+# from by an ulp
+SCAN_GRAD_RTOL = {"f64": 1e-7, "mixed": 1e-3, "f32": 5e-2}
+
+
+@pytest.mark.parametrize("precision", list(SCAN_GRAD_RTOL))
+def test_scan_backward_on_the_card(cuda, precision):
+    from repro_torch.kernels.batched_solve import ops
+    ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 64, "gc2t_np")))
+    spec, pre, Ksrc, params, v0 = _scan_operands(ckt.build(device="cpu"),
+                                                 precision, 16, "cpu")
+    names = ("KCoh", "KPa", "KPg")
+    weights = torch.randn(16, SCAN_STEPS, spec.n,
+                          generator=torch.Generator().manual_seed(0),
+                          dtype=torch.float64)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = {k: pre[k].to(dev).requires_grad_() for k in names}
+        leaves.update(Ksrc=Ksrc.to(dev).requires_grad_(),
+                      params=params.to(dev).requires_grad_(),
+                      v0=v0.to(dev).requires_grad_())
+        p = dict({k: pre[k].to(dev) for k in ("KU", "Sb")},
+                 **{k: leaves[k] for k in names})
+        before = fused_newton_scan.launches
+        vs = ops.fused_newton_scan(spec, p, leaves["Ksrc"], leaves["params"],
+                                   leaves["v0"], iters=6, tol=1e-6)
+        launched = fused_newton_scan.launches - before
+        assert launched == (1 if dev == cuda else 0)
+        loss = (vs.double() * weights.to(dev)).sum()
+        got = torch.autograd.grad(loss, list(leaves.values()))
+        assert fused_newton_scan.launches - before == launched
+        for k, g in zip(leaves, got):
+            assert g.device == leaves[k].device
+            assert g.dtype == leaves[k].dtype and torch.isfinite(g).all(), k
+        grads[str(dev)] = {k: g.double().cpu() for k, g in zip(leaves, got)}
+    for k, want in grads["cpu"].items():
+        err = float((grads[str(cuda)][k] - want).abs().max())
+        assert err <= SCAN_GRAD_RTOL[precision] * float(want.abs().max()), \
+            (k, err)
+
+
+def test_t_cell_grad_on_the_card(cuda):
+    """`t_cell_grad_fn` on the card: one scan launch forward, none
+    backward; t_cell within 1e-9 and gradients within 1e-7 of the CPU."""
+    from repro_torch.core.spice.char_batch import t_cell_grad_fn
+    cfg = BankConfig(16, 16, cell="gc2t_np")
+    x = np.array([[1.0, 1.0, 1.0], [0.97, 1.05, 0.92]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fn = t_cell_grad_fn(cfg, device=dev)
+        k = torch.tensor(x, device=dev, requires_grad=True)
+        fused_newton_scan.launches = 0
+        t, valid = fn({"vdd_scale": k[:, 0], "w_read_scale": k[:, 1],
+                       "bl_wire_scale": k[:, 2]})
+        assert fused_newton_scan.launches == (1 if dev == "cuda" else 0)
+        (g,) = torch.autograd.grad(t.sum(), k)
+        assert fused_newton_scan.launches == (1 if dev == "cuda" else 0)
+        assert valid.all()
+        out[dev] = (t.detach().cpu().numpy(), g.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-7)
+
+
+def test_optimize_query_on_the_card(cuda):
+    """The README's OptimizeQuery through Session(device="cuda") against
+    the CPU session: equal verdicts, knobs and objective within 1e-6."""
+    from repro_torch import api
+    q = api.OptimizeQuery(cell="gc2t_np", target_freq_hz=5e8,
+                          target_ret_s=5e-5,
+                          knobs=("vdd_scale", "w_read_scale"))
+    card = api.Session(device="cuda").run(q).as_dict()
+    host = api.Session(device="cpu").run(q).as_dict()
+    for k in ("met", "seed_met", "fell_back", "improved"):
+        assert card[k] == host[k], k
+    for k, v in host["knobs"].items():
+        assert card["knobs"][k] == pytest.approx(v, rel=1e-6), k
+    assert card["objective_value"] == pytest.approx(host["objective_value"],
+                                                    rel=1e-6)

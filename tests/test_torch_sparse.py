@@ -288,14 +288,25 @@ def test_fixed_count_loop_equals_early_exit():
 
 
 def test_newton_solve_implicit_backward_is_deferred():
+    """The backward, deferred until item 11, is the implicit-function
+    VJP: with F = J0 v - rhs + currents, d v*/d rhs = J(v*)^-1, so the
+    gradient of sum(v*) with respect to rhs is J(v*)^-T 1 (J from
+    autograd of `sparse_residual` at the root)."""
     _, spec, op = _step_operands("f64")
     rhs = op["rhs"].clone().requires_grad_(True)
-    v = sps.newton_solve_implicit(spec, 6, 1e-6, op["j_const"], rhs,
+    v = sps.newton_solve_implicit(spec, 30, 1e-6, op["j_const"], rhs,
                                   op["params"], op["v0"])
     assert torch.equal(v.detach(), sps.newton_solve(
-        spec, op["j_const"], op["rhs"], op["params"], op["v0"], 6, 1e-6)[0])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        v.sum().backward()
+        spec, op["j_const"], op["rhs"], op["params"], op["v0"], 30,
+        1e-6)[0])
+    (g,) = torch.autograd.grad(v.sum(), rhs)
+    J = torch.func.vmap(torch.func.jacrev(
+        lambda x, jc, r, p: sps.sparse_residual(
+            spec, jc[None], r[None], p[None], x[None])[0]))(
+        v.detach(), op["j_const"], op["rhs"], op["params"])
+    want = torch.linalg.solve(J.transpose(1, 2), torch.ones_like(g))
+    np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-12 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("cell", ["gc2t_nn", "gc2t_np"])

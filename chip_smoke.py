@@ -115,7 +115,38 @@ Phases:
      logit; then 2-layer full-width float32 greedy streams on the card
      against the CPU, counted: every prefill attention goes through the
      float32 flash-attention kernel;
-  12. time the fused Newton scan kernel (per launch and per step, by CUDA
+ 12. drive co-design, the runtime loop, the compile service and the
+     fleet, each with the counters at 0 just before it:
+     `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
+     archs of benchmarks/bench_fleet.py at decode_32k and for the
+     README's quickstart (no kernel launch, one vdd lattice and one
+     co-design cube each; held to the CPU session's report; a fresh
+     session on the store the first wrote evaluates nothing; warm walls);
+     `llama3.2-1b` at full width in bf16 behind a `TelemetryCollector`
+     (virtual clock) replaying benchmarks/bench_runtime.py's three
+     scenarios through `run_scenario` (every prefill attention through
+     the tensor-core flash kernel, every request its budget),
+     `codesign_measured` on the card held to the CPU session on the same
+     windows, `diff_profiles` against the analytic profiles, and the vdd
+     governor over the card's lattice with decisions equal to the CPU's
+     and its energy beside `replay_fixed`'s; `CompileService(device=
+     "cuda")` on bench_fleet.py's smoke mix plus a transient sweep of the
+     default lattice and a simulated gc2t_nn 16x64 compile (solver
+     "pallas"): one scan launch per topology group, 1800 Gauss-Jordan
+     warp launches, every response held to the CPU service's, the wave
+     statistics and walls; `Fleet(device="cuda")` with 2 workers and
+     with 1 on the same lines: not degraded, every worker's pid among the
+     card's compute processes while it runs, every worker served and
+     left its stats, the scan and Gauss-Jordan launches across workers
+     those of one service, no duplicate evaluation, responses equal to
+     the in-process service's, walls and one worker's cold start; then
+     bench_fleet.py's chaos spec on 2 workers (a worker killed after its
+     second publish, torn, corrupt and failing evaluations, a poison
+     request): every request resolves, the poison request is
+     quarantined, the rest equal the clean run's; then the sparse-LU
+     sweep of 8 gc2t_np points and a simulated compile, each twice,
+     compared bit for bit (ROADMAP Queue 3 F1);
+ 13. time the fused Newton scan kernel (per launch and per step, by CUDA
      events and the profiler's device time), its plain version, its bound
      and its dependent chain, and the one-step entry; the Gauss-Jordan
      kernels (warp kernel at B = 1 and 4096, N = 13, with its dependent
@@ -134,9 +165,9 @@ Phases:
      profiler: the device's idle share; one warm gradient call (forward
      and backward) under the profiler: the device's idle share and the
      scan kernel's device ms in it;
- 13. print a {"kernels": [...]} JSON line (the scan row also carries the
-     gradient path's launches), the card line, and as the last line
-     {"ok": true, "device": {...}}.
+ 14. print a {"kernels": [...]} JSON line (the scan row also carries the
+     gradient path's launches; every row carries phase 12's, by part),
+     the card line, and as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line is printed. Without a CUDA
 device, or outside a checkout of the repository, it fails at once.
@@ -146,8 +177,10 @@ Run from the root of the repository: python3 chip_smoke.py
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -1918,14 +1951,26 @@ def serve_requests(vocab: int):
     return reqs
 
 
-def reset_counts() -> None:
+def counted() -> dict:
+    """Every kernel wrapper's launch counter, by name."""
     from repro_torch.kernels.batched_solve import fused
     from repro_torch.kernels.batched_solve.kernel import batched_solve
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.gc_array_step import ops
-    for fn in (fused.fused_newton, fused.fused_newton_scan, batched_solve,
-               ops.gc_array_step, kernel.flash_attention_tc,
-               kernel.flash_attention_f32):
+    return {"fused_newton": fused.fused_newton,
+            "fused_newton_scan": fused.fused_newton_scan,
+            "gauss_jordan": batched_solve,
+            "gc_array_step": ops.gc_array_step,
+            "flash_attention_tc": kernel.flash_attention_tc,
+            "flash_attention_f32": kernel.flash_attention_f32}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in counted().items()}
+
+
+def reset_counts() -> None:
+    for fn in counted().values():
         fn.launches = 0
 
 
@@ -2348,6 +2393,651 @@ def time_scan(dev, group, banks, card) -> dict:
     return out[f"B={v0.shape[0]} T={N_STEPS}"]
 
 
+# -- co-design, the measured runtime loop, the compile service and the fleet
+# the four dense archs of benchmarks/bench_fleet.py's full workload; the
+# README's co-design quickstart takes the first two (default lattice and
+# vdd ladder in both queries)
+CODESIGN_ARCHS = ("qwen2-0.5b", "llama3.2-1b", "llama3.2-3b", "minicpm-2b")
+README_ARCHS = CODESIGN_ARCHS[:2]
+CODESIGN_SHAPE = "decode_32k"
+CODESIGN_REPS = 5           # warm walls: the median of this many runs
+# benchmarks/bench_runtime.py: virtual step time, vdd ladder, the governed
+# macro (gc2t_np 64x64) and the co-design sweep of measured windows; its
+# three scenarios in full mode (two chat cycles) come from
+# runtime_scenarios(), replayed with its seed
+RUNTIME_STEP_S = 1e-6
+RUNTIME_LADDER = (0.5, 0.6, 0.7, 0.8, 0.9, 1.0, 1.1)
+RUNTIME_SEED = 17
+GOVERNED = dict(cells=("gc2t_np",), word_sizes=(64,), num_words=(64,),
+                wwlls=(False,))
+MEASURED_CELLS = ("gc2t_np", "gc2t_nn")
+# retention on that ladder, card vs CPU: RET_RTOL at every rung from
+# vdd x0.6 up; at x0.5 the float32 decay is ill-conditioned (the
+# reference's own retention moves by more than 1e-5 there between its
+# x64 and plain runs, and the port's CPU run sits up to 1e-5 from its
+# plain run: tests/test_torch_runtime.py), so that rung, and the measured
+# reports and governor decisions whose choices range over it, take 1e-4
+LOW_RUNG = 0.5
+LOW_RUNG_RET_RTOL = 1e-4
+# card vs CPU (and fleet vs in-process service), by field class: the
+# retention-dependent fields (float32 retention on the device) take
+# RET_RTOL, the rest of the float64 algebra MATCH_RTOL, a transient
+# sweep's t_cell T_CELL_RTOL_F64 and a compile's T_CELL_RTOL_PALLAS (the
+# analytic-vs-simulated deviations the same, absolute over 1 + dev)
+RET_KEYS = frozenset({"retention_s", "refresh_w", "standby_w",
+                      "energy_per_inference_j",
+                      "total_energy_per_inference_j", "refresh_interval_s",
+                      "e_refresh_j", "retention"})
+DEV_KEYS = frozenset({"rel_dev", "max_rel_dev", "mean_rel_dev",
+                      "analytic_vs_sim_dev"})
+FLEET_WORKERS = 2
+# device memory of one worker's CUDA context, at least: nvidia-smi's
+# compute processes grew by ~2.3 GiB a worker (context, torch's kernels,
+# the two kernel libraries) on NVIDIA H100 80GB HBM3
+CONTEXT_MIB = 256
+FLEET_READY_S = 120.0       # cold start of every worker, at most
+FLEET_RUN_S = 300.0         # Fleet.run's limit
+COMPILE_LAUNCHES = 6 * READ_STEPS     # one compile's Gauss-Jordan launches
+# Queue 3 F1: repeated runs on the card, compared bit for bit: an 8-point
+# gc2t_np sweep through the sparse-LU engine (one topology group) and the
+# compile flow's simulated read (dense stamps)
+F1_SWEEP = dict(cells=("gc2t_np",), word_sizes=(16, 32),
+                num_words=(16, 32, 64, 128), wwlls=(False,),
+                fidelity="transient", solver="sparse")
+
+
+def as_json(obj):
+    return json.loads(json.dumps(obj, default=str))
+
+
+def json_worst(got, want, t_cell_rtol, key="", ret=False, worst=None):
+    """Walk two JSON results: raise on any difference of structure, flag,
+    count, name or choice, and return the largest error of each float
+    class (RET_KEYS, and everything under "retention", are retention;
+    see the limits above)."""
+    if worst is None:
+        worst = {"analytic": 0.0, "retention": 0.0, "t_cell": 0.0}
+    ret = ret or key in RET_KEYS
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            raise RuntimeError(f"{key}: keys differ")
+        for k in want:
+            json_worst(got[k], want[k], t_cell_rtol, k, ret, worst)
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise RuntimeError(f"{key}: lengths differ")
+        for g, w in zip(got, want):
+            json_worst(g, w, t_cell_rtol, key, ret, worst)
+    elif isinstance(want, float) and isinstance(got, float):
+        if math.isnan(want) or math.isnan(got):
+            if not (math.isnan(want) and math.isnan(got)):
+                raise RuntimeError(f"{key}: {got!r} != {want!r}")
+        elif key in DEV_KEYS:
+            worst["t_cell"] = max(worst["t_cell"],
+                                  abs(got - want) / (1 + abs(want)))
+        else:
+            cls = "t_cell" if key == "t_cell_sim_s" else \
+                "retention" if ret else "analytic"
+            worst[cls] = max(worst[cls], rel_err(got, want))
+    elif got != want:
+        raise RuntimeError(f"{key}: {got!r} != {want!r}")
+    return worst
+
+
+def hold_json(label, got, want, t_cell_rtol=T_CELL_RTOL_F64,
+              ret_rtol=RET_RTOL) -> dict:
+    """`got` (the card's) against `want` within the limits above."""
+    worst = json_worst(as_json(got), as_json(want), t_cell_rtol)
+    limits = {"analytic": MATCH_RTOL, "retention": ret_rtol,
+              "t_cell": t_cell_rtol}
+    if any(worst[k] > limits[k] for k in worst):
+        raise RuntimeError(f"{label}: {worst} over {limits}")
+    return worst
+
+
+def hold_responses(label, got, want, reqs) -> dict:
+    """Service responses by id: `ok` and errors equal, results within the
+    limits (a compile's t_cell at T_CELL_RTOL_PALLAS); the transport
+    bookkeeping (waves, walls, attempts) is not compared."""
+    kinds = {r["id"]: r["query"]["type"] for r in reqs}
+    got = {r["id"]: r for r in got}
+    want = {r["id"]: r for r in want}
+    if got.keys() != want.keys():
+        raise RuntimeError(f"{label}: request ids differ")
+    worst = {"analytic": 0.0, "retention": 0.0, "t_cell": 0.0}
+    for rid, w in want.items():
+        g = got[rid]
+        if (g["ok"], g.get("error")) != (w["ok"], w.get("error")):
+            raise RuntimeError(f"{label} {rid}: ok/error {g['ok']} "
+                               f"{g.get('error')!r} vs {w['ok']} "
+                               f"{w.get('error')!r}")
+        if w["ok"]:
+            tol = T_CELL_RTOL_PALLAS if kinds[rid] == "compile" \
+                else T_CELL_RTOL_F64
+            try:
+                one = hold_json(f"{label} {rid}", g["result"], w["result"],
+                                tol)
+            except RuntimeError as e:
+                raise RuntimeError(f"{label} {rid}: {e}") from e
+            worst = {k: max(worst[k], one[k]) for k in worst}
+    return worst
+
+
+def codesign_path(card) -> None:
+    """`CoDesignQuery` through `Session(device="cuda")`: the dense archs
+    and the README's quickstart, each in a fresh session with the counters
+    at 0: no kernel launch, one vdd evaluation and one cube; held to the
+    CPU session's report; a fresh session on the store the first wrote
+    evaluates nothing; the warm wall."""
+    from repro_torch.api import CoDesignQuery, Session
+    from repro_torch.workloads import profile_arch
+    queries = {
+        "dense archs": CoDesignQuery(tuple(
+            profile_arch(a, CODESIGN_SHAPE) for a in CODESIGN_ARCHS)),
+        "README quickstart": CoDesignQuery(tuple(
+            profile_arch(a, CODESIGN_SHAPE) for a in README_ARCHS),
+            vdd_scales=VDD_LADDER)}
+    store = ROOT / "build" / "smoke_codesign_store"
+    for label, q in queries.items():
+        sess = Session(device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = sess.run(q)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        n = launch_counts()
+        st = dict(sess.executor.stats)
+        picks = [f"{p['workload']} {lvl}: " + (
+            f"{e['bank']['cell']} {e['bank']['word_size']}x"
+            f"{e['bank']['num_words']} at vdd x{e['vdd_scale']} x "
+            f"{e['banks_needed']} banks" if e["feasible"] else "infeasible")
+            for p in rep for lvl, e in p["levels"].items()]
+        log(f"codesign {label}: {len(q.profiles)} profiles x "
+            f"{len(q.vdd_scales)} rungs x {rep.as_dict()['n_configs']} "
+            f"configs on the card in {cold:.3f} s (fresh session), launches "
+            f"{n}, executor stats {st}; " + "; ".join(picks))
+        if any(n.values()) or st.get("cube_calls") != 1 \
+                or st.get("vdd_evals") != 1:
+            raise RuntimeError(f"codesign {label}: launches or stats")
+        worst = hold_json(f"codesign {label}", rep.as_dict(),
+                          Session(device="cpu").run(q).as_dict())
+        log(f"codesign {label} card vs CPU: choices, verdicts and banks "
+            f"equal; analytic fields max rel {worst['analytic']!r} (limit "
+            f"{MATCH_RTOL}), retention-dependent {worst['retention']!r} "
+            f"(limit {RET_RTOL})")
+        shutil.rmtree(store, ignore_errors=True)
+        try:
+            first = Session(store=store, device="cuda").run(q)
+            fresh = Session(store=store, device="cuda")
+            again = fresh.run(q)
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        fst = dict(fresh.executor.stats)
+        same = as_json(again.as_dict()) == as_json(first.as_dict())
+        log(f"codesign {label} store: a fresh session on the store evaluates "
+            f"{fst.get('vdd_evals', 0)} vdd lattices and "
+            f"{fst.get('eval_batch_calls', 0)} batches (store hits "
+            f"{fst.get('store_hits', 0)}), report equal {same}")
+        if fst.get("vdd_evals", 0) or fst.get("eval_batch_calls", 0) \
+                or not same:
+            raise RuntimeError(f"codesign {label}: store replay")
+        walls = []
+        for _ in range(CODESIGN_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Session(device="cuda").run(q)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        log(f"time codesign {label} warm (fresh session): "
+            f"{', '.join(repr(w) for w in walls)} s, median "
+            f"{statistics.median(walls)!r} s [{card}]")
+
+
+def runtime_scenarios():
+    """benchmarks/bench_runtime.py's scenarios, full mode."""
+    from repro_torch.runtime import Phase, Scenario
+    chat = []
+    for c in range(2):
+        chat += [Phase(f"burst{c}", 4, 24, 24, 7),
+                 Phase(f"quiet{c}a", 1, 6, 8, 8),
+                 Phase(f"quiet{c}b", 0, 0, 0, 8)]
+    return [Scenario("chat_burst", tuple(chat)),
+            Scenario("batch_offline", (Phase("fill", 8, 32, 28, 7),
+                                       Phase("steady", 0, 0, 0, 7),
+                                       Phase("drain", 0, 0, 0, 4),
+                                       Phase("drain2", 0, 0, 0, 4))),
+            Scenario("long_context", (Phase("admit", 2, 40, 20, 6),
+                                      Phase("steady", 2, 40, 20, 6),
+                                      Phase("tail", 1, 40, 12, 6)))]
+
+
+def runtime_path(dev, card) -> dict:
+    """The measured loop at full width: `llama3.2-1b` in bf16 with seeded
+    weights behind a `TelemetryCollector` on a virtual clock, the three
+    scenarios replayed through `run_scenario` with the counters at 0:
+    every prefill attention through the tensor-core flash kernel, every
+    request its budget. Then `codesign_measured` on the card against the
+    CPU session on the same windows, each window's profile against the
+    analytic one, and the vdd governor over the card's lattice against the
+    CPU's, beside every fixed rung."""
+    from repro_torch.api import Session, SweepQuery
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import (GovernorPolicy, TelemetryCollector,
+                                     VddGovernor, diff_profiles,
+                                     measured_profile, replay_fixed,
+                                     run_scenario, traffic_from_window)
+    from repro_torch.serving import ServeEngine
+    from repro_torch.workloads import profile_config
+    cfg = get_config(SERVE_ARCH)
+    model = Model(cfg, device=dev, seed=SEED)
+    col = TelemetryCollector(step_time_s=RUNTIME_STEP_S)
+    eng = ServeEngine(cfg, model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                      decode_chunk=SERVE_CHUNK, seed=SEED, telemetry=col)
+    windows, rid, served = {}, 0, 0
+    reset_counts()
+    t0 = time.perf_counter()
+    for sc in runtime_scenarios():
+        eng.done = []
+        windows[sc.name] = run_scenario(eng, sc, seed=RUNTIME_SEED,
+                                        collector=col, rid_base=rid)
+        n_req = sum(ph.n_requests for ph in sc.phases)
+        rid += n_req
+        served += len(eng.done)
+        if len(eng.done) != n_req or any(
+                len(r.out_tokens) != r.max_new_tokens for r in eng.done):
+            raise RuntimeError(f"runtime replay {sc.name}: budgets")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    want = cfg.n_layers * eng.admit_syncs
+    log(f"runtime replay: {cfg.name} {cfg.dtype} full width, {served} "
+        f"requests over {sum(map(len, windows.values()))} windows of 3 "
+        f"scenarios in "
+        f"{wall:.2f} s, every request its budget; {eng.admit_syncs} prefill "
+        f"dispatches, launches {n} (flash_attention_tc expected {want})")
+    if n["flash_attention_tc"] != want or sum(n.values()) != want:
+        raise RuntimeError("runtime replay flash launches")
+    tc_launches = n["flash_attention_tc"]
+    del eng, model
+    torch.cuda.empty_cache()
+
+    wins = [w for ws in windows.values() for w in ws if w.decode_steps > 0]
+    kw = dict(sweep=SweepQuery(cells=MEASURED_CELLS),
+              vdd_scales=RUNTIME_LADDER, step_time_s=RUNTIME_STEP_S)
+    sessions = [Session(device=d) for d in ("cuda", "cpu")]
+    card_rep, cpu_rep = (s.codesign_measured(wins, cfg, **kw)
+                         for s in sessions)
+    ret = [s.vdd_lattice(kw["sweep"], RUNTIME_LADDER).retention_s
+           for s in sessions]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        gap = np.where(ret[0] == ret[1], 0.0,
+                       np.abs(ret[0] - ret[1]) / np.abs(ret[1]))
+    per_rung = dict(zip(RUNTIME_LADDER, gap.max(axis=1).tolist()))
+    log(f"measured lattice ({len(card_rep.lattice.cfgs)} configs x "
+        f"{len(RUNTIME_LADDER)} rungs): retention card vs CPU, max rel per "
+        f"rung {per_rung} (limit {LOW_RUNG_RET_RTOL} at x{LOW_RUNG}, "
+        f"{RET_RTOL} above)")
+    if any(e > (LOW_RUNG_RET_RTOL if v <= LOW_RUNG else RET_RTOL)
+           for v, e in per_rung.items()):
+        raise RuntimeError("measured lattice retention card vs CPU")
+    worst = hold_json("codesign_measured", card_rep.as_dict(),
+                      cpu_rep.as_dict(), ret_rtol=LOW_RUNG_RET_RTOL)
+    log(f"codesign_measured: {len(card_rep.plans)} measured windows, all "
+        f"feasible {card_rep.all_feasible}; card vs CPU equal choices, "
+        f"analytic max rel {worst['analytic']!r}, retention-dependent "
+        f"{worst['retention']!r}")
+    for i, w in enumerate(wins):
+        B = max(1, round(w.mean_batch))
+        S = max(1, round(w.mean_kv_rows / B))
+        dev_ = diff_profiles(
+            measured_profile(w, cfg, shape=f"win{i}",
+                             step_time_s=RUNTIME_STEP_S),
+            profile_config(cfg, ShapeConfig(f"win{i}", S, B, "decode"),
+                           n_devices=1, step_time_s=RUNTIME_STEP_S))
+        log(f"  diff_profiles win{i} vs analytic decode (B={B}, S={S}): "
+            f"{dev_}")
+
+    lats = [Session(device=d).vdd_lattice(SweepQuery(**GOVERNED),
+                                          RUNTIME_LADDER)
+            for d in ("cuda", "cpu")]
+    policy = GovernorPolicy()
+    traffics = {k: [traffic_from_window(w, cfg) for w in ws]
+                for k, ws in windows.items()}
+    peak = max(t.read_hz for ts in traffics.values() for t in ts)
+    n_banks = math.ceil(policy.headroom * peak
+                        / float(lats[0].f_max_hz[-1, 0]))
+    gov_total, fixed = 0.0, [0.0] * len(RUNTIME_LADDER)
+    for name, ts in traffics.items():
+        govs = [VddGovernor(lat, 0, n_banks, policy) for lat in lats]
+        for gov in govs:
+            for t in ts:
+                gov.observe(t)
+        hold_json(f"governor {name}",
+                  [dataclasses.asdict(d) for d in govs[0].decisions],
+                  [dataclasses.asdict(d) for d in govs[1].decisions],
+                  ret_rtol=LOW_RUNG_RET_RTOL)
+        gov_total += govs[0].total_energy_j
+        for vi in range(len(RUNTIME_LADDER)):
+            fixed[vi] += replay_fixed(lats[0], 0, n_banks, ts, vi, policy)
+        log(f"  governor {name}: rungs "
+            f"{[d.vdd_scale for d in govs[0].decisions]}, "
+            f"{sum(d.switched for d in govs[0].decisions)} switches, "
+            f"{govs[0].total_energy_j!r} J; decisions equal to the CPU's")
+    log(f"governor: gc2t_np 64x64 x {n_banks} banks, total "
+        f"{gov_total!r} J; fixed rungs "
+        + ", ".join(f"vdd x{v}: {e!r} J" for v, e in zip(RUNTIME_LADDER,
+                                                        fixed)))
+    return {"launches": tc_launches}
+
+
+def service_requests() -> list:
+    """benchmarks/bench_fleet.py's smoke workload (4 tenants: sweep, match,
+    codesign and unique per tenant, then the poison request), plus one
+    transient sweep of the default lattice and one simulated compile, both
+    with solver "pallas"."""
+    nw, archs = (16, 32, 64), CODESIGN_ARCHS[:2]
+    shared = {"cells": ["gc2t_nn", "gc2t_osos"], "word_sizes": [16, 32],
+              "num_words": list(nw)}
+    reqs = []
+    for i in range(4):
+        t = f"t{i}"
+        reqs += [
+            {"id": f"{t}-sweep", "tenant": t, "query": {
+                "type": "sweep", "cells": shared["cells"],
+                "word_sizes": shared["word_sizes"],
+                "num_words": list(nw[:2 + i % max(1, len(nw) - 2)])}},
+            {"id": f"{t}-match", "tenant": t, "query": {
+                "type": "match", "demands": [
+                    {"name": f"{t}-act", "level": "L1",
+                     "read_freq_hz": 2.0e8 * (1 + i), "lifetime_s": 2.0e-6},
+                    {"name": f"{t}-kv", "level": "L2",
+                     "read_freq_hz": 4.0e8 * (1 + i), "lifetime_s": 1.0e-3,
+                     "capacity_bits": 1 << 20}],
+                "sweep": shared}},
+            {"id": f"{t}-codesign", "tenant": t, "query": {
+                "type": "codesign",
+                "profiles": [{"arch": archs[i % len(archs)],
+                              "shape": CODESIGN_SHAPE}],
+                "vdd_scales": [0.85, 1.0], "sweep": shared}},
+            {"id": f"{t}-unique", "tenant": t, "query": {
+                "type": "sweep", "cells": ["gc2t_nn"], "word_sizes": [8],
+                "num_words": [nw[i % len(nw)]], "write_vts": [None],
+                "wwlls": [i % 2 == 1]}}]
+    reqs.append({"id": "POISON-req", "tenant": "chaos", "query": {
+        "type": "sweep", "cells": ["gc2t_nn"], "word_sizes": [8],
+        "num_words": [16]}})
+    reqs.append({"id": "transient", "tenant": "t0", "query": {
+        "type": "sweep", "fidelity": "transient", "solver": "pallas"}})
+    reqs.append({"id": "compile", "tenant": "t1", "query": {
+        "type": "compile", "simulate": True, "solver": "pallas",
+        "cfg": {"word_size": 16, "num_words": 64, "cell": "gc2t_nn"}}})
+    return reqs
+
+
+def serve_lines(svc, reqs) -> list:
+    return [json.loads(line)
+            for line in svc.serve_lines(json.dumps(r) for r in reqs)]
+
+
+def service_path(cfgs, cpu_chars, n_groups, card) -> dict:
+    """`CompileService(device="cuda")` on the request mix in one wave, the
+    counters at 0: one scan launch per topology group (the transient
+    sweep) and one compile's Gauss-Jordan launches, all warp; every
+    response held to the port's CPU service on the same lines (its
+    transient cache seeded with phase 4's CPU characterization); the wave
+    statistics and the wall, cold and warm."""
+    from repro_torch.kernels.batched_solve.kernel import batched_solve
+    from repro_torch.launch.compile_service import (CompileService,
+                                                    parse_query)
+    reqs = service_requests()
+    svc = CompileService(device="cuda", wave_size=len(reqs))
+    reset_counts()
+    batched_solve.warp_launches = batched_solve.block_launches = 0
+    t0 = time.perf_counter()
+    got = serve_lines(svc, reqs)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    n = launch_counts()
+    warp = batched_solve.warp_launches
+    st = svc.stats()
+    log(f"service: {len(reqs)} requests of {len(st['tenants'])} tenants on "
+        f"the card in {st['waves']} wave(s), {cold:.2f} s (cold session), "
+        f"{sum(r['ok'] for r in got)} ok; launches {n} (scan expected "
+        f"{n_groups}, Gauss-Jordan {COMPILE_LAUNCHES}, of them warp {warp}); "
+        f"executor stats {st['executor']}")
+    if n["fused_newton_scan"] != n_groups or n["fused_newton"] != 0 \
+            or n["gauss_jordan"] != COMPILE_LAUNCHES \
+            or warp != COMPILE_LAUNCHES or st["waves"] != 1:
+        raise RuntimeError("service launch counts")
+    cpu = CompileService(device="cpu", wave_size=len(reqs))
+    tq = parse_query(next(r["query"] for r in reqs
+                          if r["id"] == "transient"))
+    mode = (tq.sim_steps, tq.solver, tq.precision, "modeled")
+    for cfg, ch in zip(cfgs, cpu_chars):
+        cpu.session._tchars[(cpu.session._key(cfg),) + mode] = ch
+    worst = hold_responses("service", got, serve_lines(cpu, reqs), reqs)
+    log(f"service card vs CPU: ok flags and errors equal; analytic max rel "
+        f"{worst['analytic']!r} (limit {MATCH_RTOL}), retention "
+        f"{worst['retention']!r} (limit {RET_RTOL}), t_cell "
+        f"{worst['t_cell']!r} (limits {T_CELL_RTOL_F64} sweep, "
+        f"{T_CELL_RTOL_PALLAS} compile)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = serve_lines(CompileService(device="cuda", wave_size=len(reqs)),
+                        reqs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"time service mix warm (fresh service): {warm!r} s, wave wall "
+        f"{again[-1]['wave_wall_s']!r} s [{card}]")
+    return {"responses": got, "reqs": reqs, "scan": n["fused_newton_scan"],
+            "gauss_jordan": n["gauss_jordan"]}
+
+
+def compute_apps() -> dict:
+    """The card's compute processes as nvidia-smi lists them: pid -> MiB
+    of device memory (summed where a pid appears more than once)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True).stdout
+    apps = {}
+    for line in out.splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = apps.get(int(pid), 0) + float(mib or 0)
+    return apps
+
+
+def fleet_run(reqs, n_workers: int, label: str, faults=None) -> dict:
+    """One `Fleet(device="cuda")` run over a fresh spool and store: wait
+    for every worker's cold start, read the card's compute processes, run
+    the requests (timed), stop the workers."""
+    from repro_torch.launch.fleet import Fleet
+    base = ROOT / "build" / "smoke_fleet" / label
+    shutil.rmtree(base, ignore_errors=True)
+    before = compute_apps()
+    try:
+        with Fleet(str(base / "spool"), str(base / "store"),
+                   n_workers=n_workers, device="cuda",
+                   wave_size=max(8, len(reqs) // n_workers + 1),
+                   deadline_s=120.0, max_attempts=n_workers + 3,
+                   backoff_s=0.2, lease_ttl_s=2.0,
+                   fault_specs=faults) as fleet:
+            deadline = time.monotonic() + FLEET_READY_S
+            while len(fleet.ready()) < n_workers \
+                    and time.monotonic() < deadline \
+                    and all(w.proc is not None and w.proc.poll() is None
+                            for w in fleet.workers):
+                time.sleep(0.1)
+            ready = fleet.ready()
+            apps = compute_apps()
+            log(f"fleet {label}: the card's compute processes (pid: MiB) "
+                f"before the workers {before}, with them ready {apps}")
+            t0 = time.perf_counter()
+            resp = fleet.run(reqs, timeout_s=FLEET_RUN_S)
+            wall = time.perf_counter() - t0
+        evals = fleet.eval_summary()
+        stats = fleet.stats()
+    finally:
+        logs = base / "spool" / "logs"
+        tails = {p.name: p.read_text()[-2000:] for p in logs.glob("*.log")} \
+            if logs.exists() else {}
+        shutil.rmtree(base, ignore_errors=True)
+    return {"fleet": fleet, "ready": ready, "before": before, "apps": apps,
+            "resp": resp,
+            "wall": wall, "evals": evals, "stats": stats, "logs": tails}
+
+
+def workers_on_card(run, n_workers: int) -> tuple:
+    """Whether nvidia-smi shows every worker's CUDA context while the
+    workers run: each worker's pid among the card's compute processes.
+    Where nvidia-smi reports the processes of another pid namespace
+    (this process's own pid, which holds a context, is not listed
+    either), a worker cannot be found by pid; then the compute processes'
+    device memory must have grown by a context per worker since before
+    the workers started. Returns (ok, how)."""
+    pids = [r["pid"] for r in run["ready"].values()]
+    if os.getpid() in run["before"] or any(p in run["apps"] for p in pids):
+        return all(p in run["apps"] for p in pids), "worker pids listed"
+    grown = sum(run["apps"].values()) - sum(run["before"].values())
+    return (grown >= n_workers * CONTEXT_MIB,
+            f"pids of another namespace listed ({sorted(run['apps'])}, this "
+            f"process {os.getpid()} absent): device memory of the compute "
+            f"processes grew {grown!r} MiB with the workers (at least "
+            f"{CONTEXT_MIB} MiB a context)")
+
+
+def check_clean_fleet(run, n_workers: int, n_groups: int) -> None:
+    """No degradation: every worker spawned, stayed alive, started CUDA
+    (`workers_on_card`), served at least one request and left its stats;
+    across workers one scan launch per group and one compile's
+    Gauss-Jordan launches; no duplicate evaluation."""
+    fleet, stats = run["fleet"], run["stats"]
+    on_card, how = workers_on_card(run, n_workers)
+    wids = [f"w{i}" for i in range(n_workers)]
+    served = {w: sum(t["requests"] for t in stats["workers"].get(w, {}).get(
+        "service", {}).get("tenants", {}).values()) for w in wids}
+    launches = {k: sum(s.get("launches", {}).get(k, 0)
+                       for s in stats["workers"].values())
+                for k in ("fused_newton_scan", "gauss_jordan")}
+    ok = (not fleet.degraded and all(
+        fleet.counters[k] == 0 for k in ("spawn_failures", "worker_deaths",
+                                         "degraded_runs", "run_timeouts"))
+          and sorted(run["ready"]) == wids
+          and on_card
+          and all(r["device"] == "cuda" and "cuda_context_s" in
+                  r["cold_start"] for r in run["ready"].values())
+          and all(served[w] >= 1 for w in wids)
+          and launches == {"fused_newton_scan": n_groups,
+                           "gauss_jordan": COMPILE_LAUNCHES}
+          and run["evals"]["duplicates"] == {})
+    log(f"fleet {n_workers} worker(s): degraded {fleet.degraded}, counters "
+        f"{dict(fleet.counters)}, worker pids "
+        f"{ {w: r['pid'] for w, r in run['ready'].items()} } on the card "
+        f"{on_card} ({how}), requests served {served}, "
+        f"launches across workers {launches}, evaluations "
+        f"{run['evals']['by_reason']} over {run['evals']['unique_keys']} keys,"
+        f" duplicates {run['evals']['duplicates']} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        for name, tail in run["logs"].items():
+            log(f"--- {name} ---\n{tail}")
+        raise RuntimeError("fleet degraded or not on the card")
+
+
+def fleet_path(service, n_groups, card) -> dict:
+    """The fleet on the card over the service's lines: 2 workers (clean),
+    held to the in-process service's responses; 1 worker for the wall;
+    then bench_fleet.py's chaos spec on 2 workers: every request
+    resolves, the poison request is quarantined, the rest equal the clean
+    run's."""
+    reqs = service["reqs"]
+    runs = {}
+    for n_workers in (FLEET_WORKERS, 1):
+        run = runs[n_workers] = fleet_run(reqs, n_workers,
+                                          f"clean{n_workers}")
+        check_clean_fleet(run, n_workers, n_groups)
+        worst = hold_responses(f"fleet {n_workers}", run["resp"],
+                               service["responses"], reqs)
+        log(f"fleet {n_workers} worker(s) vs the in-process service on the "
+            f"card: ok flags and errors equal, max rel {worst}")
+        for wid, r in sorted(run["ready"].items()):
+            log(f"fleet {n_workers} worker(s) {wid} cold start: spawn to "
+                f"ready {r['spawn_to_ready_s']!r} s, of it "
+                f"{r['cold_start']} [{card}]")
+        log(f"time fleet {n_workers} worker(s) run ({len(reqs)} requests, "
+            f"workers warm): {run['wall']!r} s [{card}]")
+    chaos = {"w0": "seed=7,salt=w0,die_after_puts=2,poison=POISON",
+             "inline": "poison=POISON"}
+    for i in range(1, FLEET_WORKERS):
+        chaos[f"w{i}"] = (f"seed=7,salt=w{i},tear_rate=0.4,corrupt_rate=0.3,"
+                          f"eval_fail_rate=0.3,eval_slow_rate=0.3,"
+                          f"slow_s=0.05,poison=POISON")
+    run = fleet_run(reqs, FLEET_WORKERS, "chaos", chaos)
+    by_id = {r["id"]: r for r in run["resp"] if r is not None}
+    poison = by_id.get("POISON-req", {})
+    rest = [r for rid, r in by_id.items() if rid != "POISON-req"]
+    ok = (len(by_id) == len(reqs) and not poison.get("ok", True)
+          and poison.get("quarantined")
+          and poison.get("attempts") == FLEET_WORKERS + 3
+          and run["stats"].get("worker_deaths", 0) >= 1
+          and run["stats"].get("retries", 0) > 0
+          and run["evals"]["duplicates"] == {})
+    clean = [r for r in runs[FLEET_WORKERS]["resp"]
+             if r["id"] != "POISON-req"]
+    counters = {k: v for k, v in run["stats"].items()
+                if k not in ("workers", "evals")}
+    log(f"fleet chaos ({FLEET_WORKERS} workers): {len(by_id)} of {len(reqs)} "
+        f"resolved, poison quarantined {poison.get('quarantined')} after "
+        f"{poison.get('attempts')} attempts, stats {counters}, worker faults "
+        f"{ {w: s.get('faults') for w, s in run['stats']['workers'].items()} }"
+        f", duplicates {run['evals']['duplicates']}, wall {run['wall']!r} s "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("fleet chaos")
+    hold_responses("fleet chaos vs clean", rest, clean,
+                   [r for r in reqs if r["id"] != "POISON-req"])
+    log("fleet chaos: every other response equals the clean run's")
+    return {w: {k: sum(s.get("launches", {}).get(k, 0)
+                       for s in r["stats"]["workers"].values())
+                for k in ("fused_newton_scan", "gauss_jordan")}
+            for w, r in runs.items()}
+
+
+def repeatability() -> None:
+    """Queue 3 F1: the sparse-LU sweep and a simulated compile, each run
+    twice on the card in fresh sessions, compared bit for bit."""
+    from repro_torch.api import Session, SweepQuery
+    from repro_torch.core.bank import BankConfig
+    from repro_torch.core.compiler import compile_bank
+    q = SweepQuery(**F1_SWEEP)
+    t = [[c.t_cell_s for c in Session(device="cuda").run(q).transient]
+         for _ in range(2)]
+    c = [compile_bank(BankConfig(16, 64, cell="gc2t_nn"), simulate=True,
+                      solver="pallas", device="cuda").summary()
+         for _ in range(2)]
+    gap = max(rel_err(a, b) for a, b in zip(*t))
+    log(f"repeat (Queue 3 F1): sparse sweep of {len(t[0])} gc2t_np points "
+        f"twice: t_cell bit-identical {t[0] == t[1]} (max rel gap {gap!r}); "
+        f"compile_bank gc2t_nn 16x64 simulate pallas twice: report "
+        f"identical {c[0] == c[1]} (t_cell_sim {c[0]['t_cell_sim_s']!r} / "
+        f"{c[1]['t_cell_sim_s']!r})")
+    if t[0] != t[1] or c[0] != c[1]:
+        raise RuntimeError("repeated runs on the card differ")
+
+
+def codesign_fleet_phase(dev, cfgs, cpu_chars, n_groups, card) -> dict:
+    """Phase 12: co-design, the measured loop, the service and the fleet,
+    and the repeatability check."""
+    codesign_path(card)
+    replay = runtime_path(dev, card)
+    service = service_path(cfgs, cpu_chars, n_groups, card)
+    fleet = fleet_path(service, n_groups, card)
+    repeatability()
+    return {"replay": replay["launches"], "service": service,
+            "fleet": fleet}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2553,7 +3243,12 @@ def main() -> int:
     served_f32 = serve_path_f32(dev, card)
     parity_launches = serve_cpu_parity(dev)
 
-    # -- 12. timing of the new paths and kernels, on the card (the walls
+    # -- 12. co-design, the measured loop at full width, the compile
+    # service and the fleet on the card, each counted and held to the CPU;
+    # then the repeatability of the sparse sweep and the compile
+    codesigned = codesign_fleet_phase(dev, cfgs, cpu, n_groups, card)
+
+    # -- 13. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
     time_paths(card)
     scan_t = time_scan(dev, group, banks, card)
@@ -2588,8 +3283,19 @@ def main() -> int:
     profile_query(layout_query(), "layout sweep", n_groups, card)
     profile_grad(cfgs, card)
 
-    # -- 13. summary lines
+    # -- 14. summary lines
     t16 = timings["B=16"]
+    fleet_launches = codesigned["fleet"]
+    phase12 = {
+        "fused_newton_scan": {
+            "service": codesigned["service"]["scan"],
+            **{f"fleet_{w}": n["fused_newton_scan"]
+               for w, n in fleet_launches.items()}},
+        "gauss_jordan_warp": {
+            "service": codesigned["service"]["gauss_jordan"],
+            **{f"fleet_{w}": n["gauss_jordan"]
+               for w, n in fleet_launches.items()}},
+        "flash_attention_tc": {"replay": codesigned["replay"]}}
     gj = new_times["gauss_jordan B=1"]
     gj_block = new_times["gauss_jordan block"]
     gc = new_times["gc_array_step 512x512"]
@@ -2652,6 +3358,10 @@ def main() -> int:
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"]}]
+    # every row gains phase 12's launches by part (empty for a kernel the
+    # phase does not launch; the fleet's are summed over its workers)
+    for k in kernels:
+        k["phase12_launches"] = phase12.get(k["name"], {})
     if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0 \
             or parity_launches <= 0 or matched["launches"] <= 0 or any(
                 s["launches"] != s["n_layers"] * s["prefills"]

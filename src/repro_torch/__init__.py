@@ -19,6 +19,12 @@ Ported so far, each slice with its hand-written CUDA C++ kernels in
      (`kernels.gc_array_step`, `csrc/gc_array_step.cu`);
   3. serving of the dense model family (`configs`, `models`, `serving`,
      `runtime.telemetry`, `launch.serve`), whose prefill attention runs
-     in the flash-attention kernel (`kernels.flash_attention`,
-     `csrc/flash_attention.cu`).
+     in the flash-attention kernels (`kernels.flash_attention`,
+     `csrc/flash_attention_tc.cu` in bf16, `csrc/flash_attention.cu` in
+     float32);
+  4. the design-space exploration above them: the analytic, transient
+     and layout tiers, the query API (`api`), differentiable DSE
+     (`optim`), workload co-design (`workloads`, `runtime`), and the
+     compile service and fleet (`launch.compile_service`,
+     `launch.fleet`, `testing.faults`), all on the kernels above.
 """

@@ -34,8 +34,10 @@ artifact cache (`api.store`), so evaluated tables and characterizations
 survive process restarts; `Session(leases=True)` coordinates workers
 that share a store (`api.leases`).
 
-Not ported yet, raising NotImplementedError naming its ROADMAP item:
-`CoDesignQuery` (item 12).
+`CoDesignQuery` takes workload profiles (`repro_torch.workloads`, or
+measured ones from `repro_torch.runtime` through
+`Session.codesign_measured`) and picks a (config, voltage) per cache
+demand over the analytic (vdd x lattice) table on the session's device.
 """
 from repro_torch.api.executor import Executor, QueryFuture
 from repro_torch.api.leases import Lease, LeaseManager

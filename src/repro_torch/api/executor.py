@@ -520,6 +520,13 @@ class Executor:
             return dse_batch.shmoo_batch(
                 out[n.deps[0]], list(n.spec["demands"]),
                 allow_refresh=n.spec["allow_refresh"], device=s.device)
+        if n.kind == "codesign_cube":
+            self.stats["cube_calls"] += 1
+            return dse_batch.codesign_metrics(
+                out[n.deps[0]], list(n.spec["demands"]),
+                list(n.spec["steps"]),
+                allow_refresh=n.spec["allow_refresh"],
+                max_banks=n.spec["max_banks"], device=s.device)
         if n.kind == "compile":
             cfg = n.cfgs[0]
             rkey = (s._key(cfg), n.spec["simulate"], n.spec["solver"])

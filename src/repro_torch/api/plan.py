@@ -8,7 +8,8 @@ Planned execution splits every query into two halves:
     geometry verification for the layout tier (`geom`), the
     (vdd x lattice) table (`vdd_lattice`), the shmoo grid (`shmoo`),
     one-bank compilation (`compile`) and gradient optimization
-    (`optimize`);
+    (`optimize`), and the co-design cube over the vdd table
+    (`codesign_cube`);
   * a pure-host `compose` step that assembles the query's Result from
     the node outputs (select/compose: pick banks, size macros, build
     tables).
@@ -23,9 +24,6 @@ under. The backend tag names this package, so a store shared with the
 JAX package never hands either package the other's artifacts.
 Evaluation knobs that cannot change the result (e.g. `batched`) stay
 OUT of the key and ride in `spec` instead.
-
-`CoDesignQuery` does not plan yet (its Profiles come from the workload
-profiler, ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -37,7 +35,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch._deferred import deferred
 from repro_torch.api.queries import (CoDesignQuery, CompileQuery,
                                      MatchQuery, OptimizeQuery, Query,
                                      SweepQuery)
@@ -219,11 +216,26 @@ def vdd_lattice_node(session, sweep: SweepQuery, vdd_scales) -> Node:
         spec={"sweep": sweep, "vdd_scales": scales})
 
 
-# The co-design cube (a `codesign_cube` node over the vdd_lattice node,
-# composed by `compose_codesign`) runs on workload Profiles, which come
-# from the profiler.
-_plan_codesign = deferred("CoDesignQuery",
-                          "Queue 1 item 12 (co-design and fleet)")
+def _plan_codesign(session, q: CoDesignQuery) -> Plan:
+    vnode = vdd_lattice_node(session, q.sweep, q.vdd_scales)
+    demands, steps = [], []
+    for prof in q.profiles:
+        for d in prof.demands():
+            demands.append(d)
+            steps.append(prof.step_time_s)
+    cnode = Node(
+        "codesign_cube",
+        node_key("codesign_cube", session.tech,
+                 [vnode.key, _demand_payload(demands), list(steps),
+                  q.allow_refresh, q.max_banks]),
+        spec={"demands": tuple(demands), "steps": tuple(steps),
+              "allow_refresh": q.allow_refresh, "max_banks": q.max_banks},
+        deps=(vnode.key,))
+
+    def compose(s, out):
+        return compose_codesign(s, q, out[vnode.key], out[cnode.key])
+
+    return Plan(q, [vnode, cnode], compose)
 
 
 def _plan_compile(session, q: CompileQuery) -> Plan:

@@ -9,9 +9,7 @@ session method. The `run(session)` hook remains as the legacy dispatch
 path for user-defined Query subclasses; the built-in queries are
 lowered by the planner (`repro_torch.api.plan`) instead.
 
-Every query constructs and validates as in the reference. What the port
-does not run yet raises NotImplementedError naming its ROADMAP item when
-a Session plans it: `CoDesignQuery` (item 12).
+Every query constructs and validates as in the reference.
 """
 from __future__ import annotations
 
@@ -147,9 +145,6 @@ class CoDesignQuery(Query):
     (one device-batched program per cell topology), and for each
     workload's L1/L2 demand pick the feasible (config, voltage) combo
     minimizing the objective, sized as an interleaved multibank macro.
-
-    Not run by the port yet: the profiles come from the workload
-    profiler, which waits for ROADMAP item 12.
 
     The result is a `CoDesignReport`: one heterogeneous per-workload
     plan (best L1 bank at its best operating point + best L2 bank at

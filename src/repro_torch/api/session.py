@@ -39,14 +39,14 @@ content-addressed on-disk cache, so evaluated tables and transient
 characterizations survive process restarts and are shared between
 sessions.
 
-Convenience methods (`compile/sweep/match/optimize/evaluate/multibank`)
-mirror the Query objects, so both styles work:
+Convenience methods (`compile/sweep/match/codesign/optimize/evaluate/
+multibank`) mirror the Query objects, so both styles work:
 
     Session().run(SweepQuery(cells=("gc2t_nn",)))
     Session().sweep(SweepQuery(cells=("gc2t_nn",)))
 
-`codesign` and `codesign_measured` (ROADMAP Queue 1 item 12) raise
-NotImplementedError until that item lands.
+`codesign_measured(windows, cfg)` turns serving telemetry windows
+(`repro_torch.runtime`) into profiles and runs their CoDesignQuery.
 """
 from __future__ import annotations
 
@@ -56,7 +56,6 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
-from repro_torch._deferred import deferred
 from repro_torch.api.executor import Executor, QueryFuture
 from repro_torch.api.queries import (CoDesignQuery, CompileQuery,
                                      MatchQuery, OptimizeQuery, Query,
@@ -331,14 +330,33 @@ class Session:
     def codesign(self, query: CoDesignQuery) -> CoDesignReport:
         """Workload -> memory co-design: per profiled workload, pick the
         best (config, voltage) per L1/L2 demand and size its interleaved
-        macro. Waits for ROADMAP Queue 1 item 12 (the profiler)."""
+        macro; the whole (vdd x lattice x demand) cube is evaluated on
+        the session's device (`core.dse_batch.codesign_metrics`)."""
         return self._executor.run_one(query)
 
-    # co-design from measured telemetry windows needs
-    # `runtime.profile.measured_profile`
-    codesign_measured = staticmethod(deferred(
-        "Session.codesign_measured", "Queue 1 item 12 (co-design and "
-        "fleet)"))
+    def codesign_measured(self, windows, cfg, *,
+                          sweep: SweepQuery = SweepQuery(),
+                          vdd_scales=(0.7, 0.85, 1.0, 1.15),
+                          objective: str = "energy",
+                          arch: Optional[str] = None,
+                          step_time_s: Optional[float] = None,
+                          allow_refresh: bool = True,
+                          max_banks: int = 1024) -> CoDesignReport:
+        """Co-design directly from MEASURED telemetry windows: each
+        window becomes a `repro_torch.runtime.measured_profile` over the
+        model config that produced it, and the list feeds an ordinary
+        CoDesignQuery — the loop from the live engine back into design-
+        space exploration. Passing the plain list (CoDesignQuery
+        normalizes profile lists to tuples) keeps the report cacheable."""
+        from repro_torch.runtime.profile import measured_profile
+        profiles = [measured_profile(w, cfg, arch=arch, shape=f"win{i}",
+                                     step_time_s=step_time_s)
+                    for i, w in enumerate(windows)]
+        return self.run(CoDesignQuery(profiles, sweep=sweep,
+                                      vdd_scales=tuple(vdd_scales),
+                                      objective=objective,
+                                      allow_refresh=allow_refresh,
+                                      max_banks=max_banks))
 
     def optimize(self, query: OptimizeQuery = OptimizeQuery()
                  ) -> "Result":

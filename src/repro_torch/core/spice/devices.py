@@ -72,3 +72,17 @@ def i_off(fl: DeviceFlavor, w_um, l_um, vdd):
     if fl.polarity > 0:
         return float(w_um * _i_mag_per_um(fl, 0.0, vdd, 0.0, l_um))
     return float(w_um * _i_mag_per_um(fl, vdd, vdd, 0.0, l_um))
+
+
+def on_current_per_um(fl: DeviceFlavor, vdd, l_um=0.04):
+    """|Id_sat| per um at Vgs_on = Vds = vdd."""
+    if fl.polarity > 0:
+        return float(_i_mag_per_um(fl, vdd, vdd, 0.0, l_um))
+    return float(_i_mag_per_um(fl, 0.0, vdd, 0.0, l_um))
+
+
+def id_vg_curve(fl: DeviceFlavor, vds: float, l_um=0.04, w_um=1.0, n=121):
+    """Fig 8(a)/(d): |Id|-Vgs_on sweep at fixed |Vds| (float64 tensors)."""
+    vgs = torch.linspace(0.0, 1.1, n, dtype=torch.float64)
+    vg = vgs if fl.polarity > 0 else vds - vgs
+    return vgs, channel_current(fl, w_um, l_um, vg, vds, 0.0).abs()

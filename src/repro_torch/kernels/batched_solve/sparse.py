@@ -262,17 +262,46 @@ def factor_solve(sched: LUSchedule, vals, r):
     return solve_factored(sched, factor(sched, vals), r)
 
 
+def _row_table(sp: MNASparsity) -> np.ndarray:
+    """(n, m) pattern positions of each row's entries in pattern order,
+    padded with nnz (the zero column `coo_matvec` appends): m is the
+    largest count of entries in a row."""
+    per_row = [np.nonzero(np.asarray(sp.rows) == i)[0] for i in range(sp.n)]
+    m = max(len(p) for p in per_row)
+    return np.stack([np.pad(p, (0, m - len(p)), constant_values=sp.nnz)
+                     for p in per_row])
+
+
 def _pattern_indices(sp: MNASparsity, device):
     return _indices(sp, device, lambda t: {
         "rows": t(sp.rows), "cols": t(sp.cols),
-        "diag": t(sp.diag_pos)})
+        "diag": t(sp.diag_pos), "row_tab": t(_row_table(sp))})
 
 
 def coo_matvec(sp: MNASparsity, vals, v):
-    """y = A @ v with A given as (B, nnz) pattern values, v (B, n)."""
+    """y = A @ v with A given as (B, nnz) pattern values, v (B, n).
+
+    On the CPU `index_add_` adds each row's products in pattern order. On
+    CUDA it adds them with atomics, whose order (and so the rounding of
+    a row with several entries) changes from run to run, so there each
+    row's products are gathered and added in the same pattern order:
+    equal to the CPU's sums, and the same in every run."""
     ix = _pattern_indices(sp, v.device)
     prod = vals[:, :sp.nnz] * v[:, ix["cols"]]
-    return torch.zeros_like(v).index_add_(1, ix["rows"], prod)
+    if v.device.type != "cuda":
+        return torch.zeros_like(v).index_add_(1, ix["rows"], prod)
+    return ordered_row_sums(ix["row_tab"], prod)
+
+
+def ordered_row_sums(row_tab, prod):
+    """(B, n) sums of the (B, nnz) products per row, each row's terms
+    added one after another in pattern order (`_row_table`)."""
+    terms = torch.cat([prod, prod.new_zeros(prod.shape[0], 1)],
+                      dim=1)[:, row_tab]
+    y = terms[..., 0]
+    for j in range(1, terms.shape[-1]):
+        y = y + terms[..., j]
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,11 @@ time is model-steps x step_time_s, advanced by the chunk hooks (and by
 replays produce deterministic windows. Without it, wall time
 (time.monotonic).
 
-A `TelemetryWindow` snapshot is a frozen bag of counters; its byte-level
-interpretation (the reference's `runtime.profile` and `runtime.governor`)
-is not ported yet (ROADMAP Queue 1 item 13).
+A `TelemetryWindow` snapshot is a frozen bag of counters; the byte-level
+interpretation (KV bytes per row, weight stream, hierarchy split) lives
+in `repro_torch.runtime.profile`, which converts windows into the frozen
+`repro_torch.workloads.profiler.Profile` schema, and in
+`repro_torch.runtime.governor`, which turns windows into macro `Traffic`.
 """
 from __future__ import annotations
 

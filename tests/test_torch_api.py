@@ -35,11 +35,12 @@ from repro.core import compiler as ref_compiler  # noqa: E402
 from repro.core import dse as ref_dse  # noqa: E402
 from repro.core import dse_batch as ref_dse_batch  # noqa: E402
 from repro.core.bank import BankConfig as RefBankConfig  # noqa: E402
-from repro.workloads.profiler import Profile  # noqa: E402
+from repro.workloads.profiler import Profile as RefProfile  # noqa: E402,E501
 import repro_torch.api as api  # noqa: E402
 from repro_torch.api import plan as plan_mod  # noqa: E402
 from repro_torch.core import compiler, dse, dse_batch  # noqa: E402
 from repro_torch.core.bank import BankConfig  # noqa: E402
+from repro_torch.workloads import Profile  # noqa: E402
 
 RTOL_ANALYTIC = 1e-12
 RTOL_RETENTION = 2e-6
@@ -343,12 +344,20 @@ def test_deferred_queries_name_their_item():
                 wwlls=(False,))
     prof = Profile("llama", "decode", "decode", 2e-3, 1e9, 1e8, 1e6, 1.0,
                    1e-3, 1e-6, 3e8, 8e8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s.run(api.CoDesignQuery((prof,)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s.codesign_measured([], None)
+    # CoDesignQuery and codesign_measured (item 12) run now
+    rep = s.run(api.CoDesignQuery((prof,), api.SweepQuery(**tiny)))
+    assert isinstance(rep, api.CoDesignReport) and len(rep.plans) == 1
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import TelemetryCollector
+    col = TelemetryCollector(step_time_s=1e-6)
+    col.on_chunk(4, 4, [10], 0)
+    measured = s.codesign_measured([col.snapshot()],
+                                   get_config("llama3.2-1b"),
+                                   sweep=api.SweepQuery(**tiny))
+    assert [p["workload"] for p in measured] == \
+        ["measured:llama3.2-1b:win0"]
     # the layout tier (item 10), the sparse engine (item 4) and
-    # OptimizeQuery (item 11) run now
+    # OptimizeQuery (item 11) run too
     assert s.run(api.OptimizeQuery(steps=2)).raw["evals"]["grad_steps"] == 2
     for fidelity, solver in (("layout", "pallas"), ("transient", "sparse")):
         t = s.run(api.SweepQuery(**tiny, fidelity=fidelity, solver=solver,
@@ -411,21 +420,23 @@ def test_optimize_query_matches_reference(tmp_path):
 
 
 def test_compose_codesign_and_vdd_lattice_match_reference():
-    """`compose_codesign` (wired into CoDesignQuery with the profiler,
-    ROADMAP item 12) on the reference's cube equals the reference's plan;
+    """`compose_codesign` (CoDesignQuery's compose step) on the
+    reference's cube equals the reference's plan;
     `Session.vdd_lattice` runs the analytic vdd ladder."""
-    profs = (Profile("a", "s", "decode", 2e-3, 1e9, 1e8, 1e6, 1.0, 1e-3,
-                     1e-6, 3e8, 8e8),
-             Profile("b", "t", "prefill", 5e-3, 1e9, 1e8, 1e6, 3600.0, 1.0,
-                     1e-5, 1.2e9, 5e10))
+    fields = (("a", "s", "decode", 2e-3, 1e9, 1e8, 1e6, 1.0, 1e-3, 1e-6,
+               3e8, 8e8),
+              ("b", "t", "prefill", 5e-3, 1e9, 1e8, 1e6, 3600.0, 1.0, 1e-5,
+               1.2e9, 5e10))
+    ref_profs = tuple(RefProfile(*f) for f in fields)
+    profs = tuple(Profile(*f) for f in fields)
     sweep = dict(cells=("gc2t_nn", "gc2t_osos"), word_sizes=(16, 32),
                  num_words=(16, 64))
     rs, _ = ref_run([])
     with jax.enable_x64(True):
-        rq = ref_api.CoDesignQuery(profs, ref_api.SweepQuery(**sweep))
+        rq = ref_api.CoDesignQuery(ref_profs, ref_api.SweepQuery(**sweep))
         rlat = rs.vdd_lattice(rq.sweep, rq.vdd_scales)
-        ds = [d for p in profs for d in p.demands()]
-        steps = [p.step_time_s for p in profs for _ in p.demands()]
+        ds = [d for p in ref_profs for d in p.demands()]
+        steps = [p.step_time_s for p in ref_profs for _ in p.demands()]
         cube = ref_dse_batch.codesign_metrics(rlat, ds, steps)
         want = ref_api.plan.compose_codesign(rs, rq, rlat, cube)
     ref_dse_batch._CONSTS_CACHE.clear()

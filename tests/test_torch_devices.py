@@ -112,3 +112,25 @@ def test_softplus_matches_logaddexp_beyond_torch_threshold():
                                want_sig, rtol=1e-15, atol=1e-300)
     assert dataclasses.asdict(SYN40.flavor("nmos_svt")) == \
         dataclasses.asdict(REF_SYN40.flavor("nmos_svt"))
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_on_current_and_id_vg_curve_match_reference(flavor):
+    """Fig 8(a)/(d)'s I-V sweep and the on-current, float64, both
+    polarities, at two |Vds| and two lengths."""
+    fl, rfl = SYN40.flavor(flavor), REF_SYN40.flavor(flavor)
+    for vdd, l_um in ((1.1, 0.04), (0.8, 0.1)):
+        with jax.enable_x64(True):
+            want_on = ref_dv.on_current_per_um(rfl, vdd, l_um)
+            rv, ri = ref_dv.id_vg_curve(rfl, vdd, l_um=l_um, w_um=0.3, n=61)
+            rv, ri = np.asarray(rv), np.asarray(ri)
+        got_on = pt_dv.on_current_per_um(fl, vdd, l_um)
+        gv, gi = pt_dv.id_vg_curve(fl, vdd, l_um=l_um, w_um=0.3, n=61)
+        assert isinstance(got_on, float) and got_on > 0
+        np.testing.assert_allclose(got_on, want_on, rtol=RTOL)
+        assert gv.dtype == gi.dtype == torch.float64 and gi.shape == (61,)
+        np.testing.assert_allclose(gv.numpy(), rv, rtol=RTOL, atol=1e-15)
+        _close([gi.numpy()], [ri])
+        # |Id| grows with the gate drive
+        assert (np.diff(gi.numpy()) > 0).all()
+

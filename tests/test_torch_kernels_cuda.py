@@ -576,6 +576,31 @@ def test_sparse_sweep_on_the_card(cuda):
                                [c.t_cell_s for c in cpu], rtol=1e-9)
 
 
+def test_sparse_sweep_repeats_on_the_card(cuda):
+    """ROADMAP Queue 3 F1: the sparse engine's A @ v sums each row in
+    pattern order on the card (not with `index_add_`'s atomics), so two
+    runs of a sparse sweep give the same bits, and one product equals
+    the CPU's bit for bit."""
+    from repro_torch import api
+    from repro_torch.core import timing
+    from repro_torch.kernels.batched_solve import sparse
+    q = api.SweepQuery(cells=("gc2t_np",), word_sizes=(16,),
+                       num_words=(16, 64), wwlls=(False,),
+                       fidelity="transient", solver="sparse")
+    runs = [[c.t_cell_s for c in api.Session(device="cuda").run(q).transient]
+            for _ in range(2)]
+    assert runs[0] == runs[1] and all(np.isfinite(runs[0]))
+    ckt, _ = timing.read_netlist(build_bank(BankConfig(16, 64,
+                                                       cell="gc2t_np")))
+    sp = ckt.build_sparsity()
+    rng = np.random.default_rng(0)
+    vals = torch.as_tensor(rng.uniform(-1, 1, (64, sp.nnz)))
+    v = torch.as_tensor(rng.uniform(-1, 1, (64, sp.n)))
+    host = sparse.coo_matvec(sp, vals, v)
+    card = sparse.coo_matvec(sp, vals.to(cuda), v.to(cuda))
+    assert torch.equal(card.cpu(), host)
+
+
 # -- the differentiable DSE path ---------------------------------------------
 # the scan's backward (the implicit-function adjoint, plain torch) on the
 # card against the same Function on the CPU, from the same operands. The
@@ -659,3 +684,53 @@ def test_optimize_query_on_the_card(cuda):
         assert card["knobs"][k] == pytest.approx(v, rel=1e-6), k
     assert card["objective_value"] == pytest.approx(host["objective_value"],
                                                     rel=1e-6)
+
+
+# -- the compile service ------------------------------------------------------
+def test_compile_service_launches_the_kernels(cuda):
+    """`CompileService(device="cuda")`: a transient sweep request launches
+    the scan kernel once per topology group, a simulated compile with
+    solver "pallas" one warp Gauss-Jordan launch per Newton iteration
+    (6 x 300); both responses equal the CPU service's (t_cell 1e-9 for
+    the sweep, 5e-8 for the compile, the analytic fields 1e-12)."""
+    import json
+
+    from repro_torch.core.dse import lattice_configs
+    from repro_torch.core.dse_batch import group_by_topology
+    from repro_torch.kernels.batched_solve.kernel import batched_solve
+    from repro_torch.launch.compile_service import CompileService
+    sweep = dict(cells=["gc2t_nn", "gc2t_osos"], word_sizes=[16],
+                 num_words=[16, 64], wwlls=[False, True])
+    reqs = [{"id": "transient", "query": dict(
+                sweep, type="sweep", fidelity="transient", solver="pallas")},
+            {"id": "compile", "query": {
+                "type": "compile", "simulate": True, "solver": "pallas",
+                "cfg": {"word_size": 16, "num_words": 64,
+                        "cell": "gc2t_nn"}}}]
+    n_groups = len(group_by_topology(lattice_configs(**{
+        k: tuple(v) for k, v in sweep.items()})))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fused_newton_scan.launches = fused_newton.launches = 0
+        batched_solve.launches = batched_solve.warp_launches = 0
+        svc = CompileService(device=dev)
+        out[dev] = {r["id"]: r for r in map(json.loads, svc.serve_lines(
+            json.dumps(r) for r in reqs))}
+        if dev == "cuda":
+            assert fused_newton_scan.launches == n_groups
+            assert fused_newton.launches == 0
+            assert batched_solve.launches == batched_solve.warp_launches \
+                == 6 * 300
+    card, host = out["cuda"], out["cpu"]
+    assert all(r["ok"] for r in card.values())
+    rows = zip(card["transient"]["result"]["rows"],
+               host["transient"]["result"]["rows"])
+    for g, w in rows:
+        assert g["cell"] == w["cell"] and g["wwlls"] == w["wwlls"]
+        assert g["f_max_hz"] == pytest.approx(w["f_max_hz"], rel=1e-12)
+        assert g["transient"]["t_cell_sim_s"] == pytest.approx(
+            w["transient"]["t_cell_sim_s"], rel=1e-9)
+    g, w = card["compile"]["result"], host["compile"]["result"]
+    assert g["t_cell_sim_s"] == pytest.approx(w["t_cell_sim_s"], rel=5e-8)
+    assert g["timing"]["t_read_s"] == pytest.approx(w["timing"]["t_read_s"],
+                                                    rel=1e-12)

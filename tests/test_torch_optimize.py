@@ -238,3 +238,22 @@ def test_optimize_query_validates_at_construction():
     assert isinstance(q.knobs, tuple)
     assert hash(q) == hash(OptimizeQuery(knobs=("vdd_scale",),
                                          seed_vdd_scales=(0.8, 1.0)))
+
+
+def test_optim_exports_the_ported_optimizers():
+    """`repro_torch.optim` re-exports what `repro.optim` does; the
+    training optimizers and schedules still name their item."""
+    import repro.optim as ref_optim
+    import repro_torch.optim as optim
+    from repro_torch.optim import adamw, global_norm
+    from repro_torch.optim.optimizers import adamw as adamw_def
+    assert adamw is adamw_def and callable(global_norm)
+    assert sorted(optim.__all__) == sorted(
+        n for n in dir(ref_optim) if n in ("adamw", "adafactor",
+                                           "make_optimizer", "global_norm",
+                                           "make_schedule"))
+    tree = {"a": torch.tensor([3.0, 4.0]), "b": [torch.tensor([12.0])]}
+    assert float(global_norm(tree)) == pytest.approx(13.0)
+    for name in ("adafactor", "make_optimizer", "make_schedule"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            getattr(optim, name)()

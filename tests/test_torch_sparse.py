@@ -145,6 +145,29 @@ def test_factor_solve_and_matvec_match_dense_and_reference():
                                atol=1e-15)
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_ordered_row_sums_equal_index_add(cell):
+    """The fixed-order sum `coo_matvec` runs on CUDA tensors (ROADMAP
+    Queue 3 F1) adds each row's products in pattern order, as the CPU's
+    `index_add_` does: bit for bit, on rows of up to four entries."""
+    _, ckt, _ = _circuits(cell)
+    sp = ckt.build_sparsity()
+    tab = sps._row_table(sp)
+    assert tab.shape[0] == sp.n and tab.shape[1] >= 4
+    for i in range(sp.n):
+        got = tab[i][tab[i] < sp.nnz]
+        np.testing.assert_array_equal(got, np.nonzero(sp.rows == i)[0])
+    B = 7
+    vals = torch.as_tensor(_pattern_values(sp, B))
+    v = torch.as_tensor(np.random.default_rng(3).uniform(-1.0, 1.0,
+                                                         (B, sp.n)))
+    prod = vals * v[:, torch.as_tensor(sp.cols)]
+    want = torch.zeros_like(v).index_add_(1, torch.as_tensor(sp.rows), prod)
+    got = sps.ordered_row_sums(torch.as_tensor(tab), prod)
+    assert torch.equal(got, want)
+    assert torch.equal(sps.coo_matvec(sp, vals, v), want)
+
+
 def _lattice_inputs(B=3, cell="gc2t_nn", ws=16, nw=16, seed=42,
                     per_lane_t0=False):
     """One topology's run_lattice inputs with per-lane R/C and stop-time

@@ -18,8 +18,13 @@ Phases:
      cluster per column block, or none at 64x2200), each launched twice
      and held to the same bits; flash attention at the serving path's
      prefill shapes and at ragged, offset, kv_len < Skv, G = 1 and G = 7
-     shapes (bfloat16 through the tensor-core kernel, float32 through the
-     float32 kernel);
+     shapes, at the moe and hybrid serves' shapes (zamba2's hd = 80 at
+     B = 2, S = 128-1024; mixtral's hd = 128 at S = 5120 with its
+     4096-token window) and at head_dims padded inside the launch (8, 24,
+     72, 256) with and without a window, q_offset > 0 and kv_len < Skv
+     (bfloat16 through the tensor-core kernel, float32 through the float32
+     kernel), and that a key tile outside every query's window is skipped
+     (the tensor-core kernel at a 64-key window against none);
   4. drive the lattice path, `characterize` over the default 96-point
      design lattice, with the launch counters set to 0 just before it;
      check that each topology group's transient was one launch of the
@@ -114,12 +119,27 @@ Phases:
      each prefill shape within the float32 kernel limit of the largest
      logit; then 2-layer full-width float32 greedy streams on the card
      against the CPU, counted: every prefill attention goes through the
-     float32 flash-attention kernel;
+     float32 flash-attention kernel; the bf16 serve of llama3.2-1b
+     again with an int8 KV cache (same weights, prefill logits equal to
+     the bf16 model's, counted, every request its budget, wall and decode
+     rate beside the bf16 serve's);
+ 11b. drive the moe and hybrid serves, each counted with the counters at
+     0 just before it: mixtral-8x7b at its published widths, depth cut to
+     8 of 32 layers (bf16, ring cache of its 4096-token window), 16
+     requests of 256-5120 prompt tokens: 8 tensor-core flash launches per
+     prefill dispatch, those past the window counted apart, every request
+     its budget, prefill logits kernel vs plain flash at 1024 and 5120
+     tokens, walls and spans; zamba2-2.7b at full width and depth (bf16,
+     2,422,532,000 weights), 16 requests of 128-1024 tokens: 9 hd = 80
+     tensor-core launches per prefill dispatch, budgets, logits, walls;
+     then reduced mixtral (prompts past its window), zamba2 and int8-KV
+     llama in float32 on the card against the CPU: greedy streams equal
+     (device and host mode), prefill logits within 2e-5 of the largest;
  12. drive co-design, the runtime loop, the compile service and the
      fleet, each with the counters at 0 just before it:
      `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
-     archs of benchmarks/bench_fleet.py at decode_32k and for the
-     README's quickstart (no kernel launch, one vdd lattice and one
+     archs of benchmarks/bench_fleet.py at decode_32k, for mixtral-8x7b
+     with zamba2-2.7b at decode_32k and for the README's quickstart (no kernel launch, one vdd lattice and one
      co-design cube each; held to the CPU session's report; a fresh
      session on the store the first wrote evaluates nothing; warm walls);
      `llama3.2-1b` at full width in bf16 behind a `TelemetryCollector`
@@ -156,7 +176,8 @@ Phases:
      flash-attention kernels (CUDA events and the profiler's device time;
      the tensor-core kernel at the serve's four prefill shapes, the
      float32 kernel at the same four and at the 2-layer float32 serve's
-     two), their plain versions,
+     two, both at the hybrid serve's four and the moe serve's windowed
+     one, SDPA there with an explicit window mask), their plain versions,
      their bounds and the library calls (`torch.linalg.solve_ex` and
      `torch.linalg.solve`; `scaled_dot_product_attention` in the same
      call), and the warm compile and `run_batch` walls; then one warm
@@ -166,8 +187,10 @@ Phases:
      and backward) under the profiler: the device's idle share and the
      scan kernel's device ms in it;
  14. print a {"kernels": [...]} JSON line (the scan row also carries the
-     gradient path's launches; every row carries phase 12's, by part),
-     the card line, and as the last line {"ok": true, "device": {...}}.
+     gradient path's launches; every row carries phase 12's, by part; the
+     flash rows carry phase 11b's and their times at the new shapes), the
+     smoke's total wall, the card line, and as the last line {"ok": true,
+     "device": {...}}.
 
 Any failure exits nonzero before the last line is printed. Without a CUDA
 device, or outside a checkout of the repository, it fails at once.
@@ -1850,6 +1873,35 @@ FLASH_SHAPES = SERVE_FLASH_SHAPES + (
 # (the serve's prompts fit one 1024-key chunk): (shape, chunk_kv)
 FLASH_CHUNKED = (((1, 300, 300, 8, 2, 64, 0, 250), 32),
                  ((1, 300, 300, 8, 2, 64, 0, 250), 40))
+# the shapes the moe and hybrid serves launch, (B, Sq, Skv, H, K, hd,
+# q_offset, kv_len, window): zamba2-2.7b's prefills (B = 2, hd = 80, H = K
+# = 32) at its serve's four prompt lengths, and mixtral-8x7b's windowed
+# prefill (hd = 128, H = 32, K = 8, a 5120-token prompt longer than its
+# 4096-token window)
+HYBRID_LENS = (128, 256, 512, 1024)
+MOE_LENS = (256, 1024, 2048, 5120)
+MOE_WINDOW = 4096
+HYBRID_FLASH_SHAPES = tuple((2, n, n, 32, 32, 80, 0, None, 0)
+                            for n in HYBRID_LENS)
+MOE_FLASH_SHAPE = (2, 5120, 5120, 32, 8, 128, 0, None, MOE_WINDOW)
+# head_dims padded inside the launch (8, 24, 72, 256), each with and
+# without a window, with q_offset > 0 and kv_len < Skv; every row keeps a
+# key in its window (a row with none is undefined), and chunk_kv 40 ends
+# chunks inside key tiles
+FLASH_NEW_CASES = tuple((shape, 1024) for shape in HYBRID_FLASH_SHAPES
+                        + (MOE_FLASH_SHAPE,)) + (
+    ((2, 300, 300, 8, 2, 8, 0, None, 0), 1024),
+    ((2, 300, 300, 8, 2, 8, 20, 290, 100), 40),
+    ((1, 200, 240, 8, 2, 24, 40, 230, 0), 40),
+    ((1, 200, 240, 8, 2, 24, 40, 230, 64), 1024),
+    ((2, 150, 180, 4, 4, 72, 20, 170, 0), 1024),
+    ((2, 150, 180, 4, 4, 72, 20, 170, 33), 40),
+    ((1, 256, 300, 4, 2, 256, 30, 290, 0), 1024),
+    ((1, 256, 300, 4, 2, 256, 30, 290, 64), 40))
+# the skip check: the bf16 kernel at mixtral's prefill shape with a
+# 64-key window must take under this share of its time with none (it
+# visits ~2 of 80 key tiles a row tile)
+SKIP_WINDOW, SKIP_MAX_SHARE = 64, 0.25
 # kernel vs plain: the reference's own limits (tests/test_kernels.py)
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # prefill logits through the kernel vs through the plain flash version,
@@ -1869,20 +1921,30 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 
 def flash_inputs(shape, dtype, dev):
     B, Sq, Skv, H, K, hd = shape[:6]
-    rng = np.random.default_rng(SEED + Sq + Skv + H)
+    rng = np.random.default_rng(SEED + Sq + Skv + H + hd)
     return tuple(torch.as_tensor(rng.standard_normal(s), dtype=dtype,
                                  device=dev)
                  for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
 
 
+def flash_args(shape) -> tuple:
+    """(q_offset, kv_len, window) of a shape tuple, window 0 when it has
+    none."""
+    return shape[6], shape[7], shape[8] if len(shape) > 8 else 0
+
+
 def flash_work(shape, itemsize: int) -> tuple:
     """(bytes, operations) of one flash-attention launch: Q, K and V read
     once and O written once; 4 * hd operations (QK and PV multiply-adds)
-    per head and unmasked (query, key) pair."""
-    B, Sq, Skv, H, K, hd, off, kv_len = shape
+    per head and unmasked (query, key) pair (causal, below kv_len, and
+    inside the window when there is one)."""
+    B, Sq, Skv, H, K, hd = shape[:6]
+    off, kv_len, window = flash_args(shape)
     kv_len = Skv if kv_len is None else kv_len
     nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Skv * K * hd)
-    pairs = sum(min(kv_len, off + i + 1) for i in range(Sq))
+    pairs = sum(max(0, min(kv_len, off + i + 1)
+                    - (max(0, off + i - window + 1) if window else 0))
+                for i in range(Sq))
     return nbytes, 4 * B * H * hd * pairs
 
 
@@ -1896,14 +1958,16 @@ def flash_counts() -> dict:
 
 def check_flash_attention(dev) -> dict:
     """Both flash-attention kernels against the plain version on the card
-    at `FLASH_SHAPES` and `FLASH_CHUNKED`: bfloat16 through the tensor-core
-    kernel, float32 through the float32 kernel, each call launching the
-    kernel of its dtype once and the other not at all. Returns the largest
-    error by dtype."""
+    at `FLASH_SHAPES`, `FLASH_CHUNKED` and `FLASH_NEW_CASES` (the moe and
+    hybrid serves' shapes, padded head_dims, windows): bfloat16 through
+    the tensor-core kernel, float32 through the float32 kernel, each call
+    launching the kernel of its dtype once and the other not at all; then
+    the skip check. Returns the largest error by dtype."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
     worst = {}
-    cases = [(shape, 1024) for shape in FLASH_SHAPES] + list(FLASH_CHUNKED)
+    cases = ([(shape, 1024) for shape in FLASH_SHAPES] + list(FLASH_CHUNKED)
+             + list(FLASH_NEW_CASES))
     for dtype, atol in FLASH_ATOL.items():
         other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
         name = ("flash_attention_tc" if dtype == torch.bfloat16
@@ -1911,13 +1975,14 @@ def check_flash_attention(dev) -> dict:
         worst[dtype] = 0.0
         for shape, chunk_kv in cases:
             q, k, v = flash_inputs(shape, dtype, dev)
-            off, kv_len = shape[6], shape[7]
+            off, kv_len, window = flash_args(shape)
             before = flash_counts()
             got = flash_attention_fwd(q, k, v, off, kv_len=kv_len,
-                                      chunk_kv=chunk_kv)
+                                      window=window, chunk_kv=chunk_kv)
             after = flash_counts()
             want = flash_attention_plain(q, k, v, q_offset=off,
-                                         kv_len=kv_len, chunk_kv=chunk_kv)
+                                         kv_len=kv_len, window=window,
+                                         chunk_kv=chunk_kv)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             routed = (after[dtype] == before[dtype] + 1
@@ -1925,25 +1990,40 @@ def check_flash_attention(dev) -> dict:
             ok = (routed and got.dtype == dtype
                   and bool(torch.isfinite(got).all()) and err <= atol)
             log(f"check {name} {str(dtype)[6:]} (B, Sq, Skv, H, K, hd, "
-                f"q_offset, kv_len) = {shape}, chunk_kv {chunk_kv}: max|do| "
+                f"q_offset, kv_len[, window]) = {shape}, chunk_kv "
+                f"{chunk_kv}: max|do| "
                 f"vs plain {err!r} (limit {atol}), "
                 f"{'one launch' if routed else 'WRONG KERNEL'} "
                 f"{'ok' if ok else 'FAILED'}")
             if not ok:
                 raise RuntimeError(f"flash_attention check {shape} failed")
             worst[dtype] = max(worst[dtype], err)
+    # a key tile wholly before every query's window is skipped: at
+    # mixtral's prefill shape a 64-key window leaves ~2 of 80 tiles a row
+    q, k, v = flash_inputs(MOE_FLASH_SHAPE, torch.bfloat16, dev)
+    full = time_ms(lambda: flash_attention_fwd(q, k, v), 10)
+    narrow = time_ms(lambda: flash_attention_fwd(q, k, v,
+                                                 window=SKIP_WINDOW), 10)
+    ok = narrow <= SKIP_MAX_SHARE * full
+    log(f"check flash_attention_tc tile skipping at {MOE_FLASH_SHAPE[:6]}: "
+        f"window {SKIP_WINDOW} {narrow!r} ms against no window {full!r} ms "
+        f"(share {narrow / full!r}, limit {SKIP_MAX_SHARE}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("flash_attention_tc does not skip tiles outside "
+                           "the window")
     return worst
 
 
-def serve_requests(vocab: int):
+def serve_requests(vocab: int, lens=SERVE_LENS):
     """The serve workload: 16 requests, four of each prompt length in
-    `SERVE_LENS` (seeded random tokens), 64 new tokens each; odd rids
-    sample at temperature 0.7 with top_k 40, even rids are greedy."""
+    `lens` (seeded random tokens), 64 new tokens each; odd rids sample at
+    temperature 0.7 with top_k 40, even rids are greedy."""
     from repro_torch.serving import Request
     rng = np.random.default_rng(SEED)
     reqs = []
-    for i in range(4 * len(SERVE_LENS)):
-        n = SERVE_LENS[i % len(SERVE_LENS)]
+    for i in range(4 * len(lens)):
+        n = lens[i % len(lens)]
         reqs.append(Request(
             rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
             max_new_tokens=SERVE_MAX_NEW, temperature=0.7 if i % 2 else 0.0,
@@ -1974,12 +2054,13 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def run_engine(model, cfg, mode: str):
-    """Serve the workload once; returns (engine, {rid: tokens}, wall s)."""
+def run_engine(model, cfg, mode: str, lens=SERVE_LENS, window=SERVE_WINDOW):
+    """Serve the workload (prompts of `lens`) once; returns (engine, {rid:
+    tokens}, wall s)."""
     from repro_torch.serving import ServeEngine
-    eng = ServeEngine(cfg, model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+    eng = ServeEngine(cfg, model, n_slots=SERVE_SLOTS, window=window,
                       mode=mode, decode_chunk=SERVE_CHUNK, seed=SEED)
-    for r in serve_requests(cfg.vocab_size):
+    for r in serve_requests(cfg.vocab_size, lens):
         eng.submit(r)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1999,18 +2080,28 @@ class PhaseEvents:
     def __init__(self, model):
         self.model = model
         self.pairs = {"prefill": [], "decode_loop": []}
+        # per prefill dispatch: (B, S, tensor-core and float32 flash
+        # launches it made)
+        self.prefills = []
 
     def __enter__(self):
         for name, pairs in self.pairs.items():
             fn = getattr(self.model, name)
 
-            def timed(*args, _fn=fn, _pairs=pairs, **kwargs):
+            def timed(*args, _fn=fn, _pairs=pairs, _name=name, **kwargs):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
+                before = flash_counts()
                 start.record()
                 out = _fn(*args, **kwargs)
                 end.record()
                 _pairs.append((start, end))
+                if _name == "prefill":
+                    after = flash_counts()
+                    B, S = args[0]["tokens"].shape
+                    self.prefills.append(
+                        (B, S, after[torch.bfloat16] - before[torch.bfloat16],
+                         after[torch.float32] - before[torch.float32]))
                 return out
             setattr(self.model, name, timed)
         return self
@@ -2024,7 +2115,8 @@ class PhaseEvents:
         return sum(s.elapsed_time(e) for s, e in self.pairs[name])
 
 
-def prefill_logits_vs_plain(model, cfg, dev, n: int) -> tuple:
+def prefill_logits_vs_plain(model, cfg, dev, n: int,
+                            window=SERVE_WINDOW) -> tuple:
     """Prefill logits of two n-token prompts (one admission group of the
     serve) through the kernel and through the plain flash version, on the
     card."""
@@ -2034,12 +2126,12 @@ def prefill_logits_vs_plain(model, cfg, dev, n: int) -> tuple:
     rng = np.random.default_rng(SEED + n)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n)),
                            dtype=torch.int32, device=dev)
-    got, _, _ = model.prefill({"tokens": toks}, W=SERVE_WINDOW)
+    got, _, _ = model.prefill({"tokens": toks}, W=window)
     kernel_path = attention.flash_attention
     attention.flash_attention = (
         lambda q, k, v, **kw: flash_attention_plain(q, k, v, **kw))
     try:
-        want, _, _ = model.prefill({"tokens": toks}, W=SERVE_WINDOW)
+        want, _, _ = model.prefill({"tokens": toks}, W=window)
     finally:
         attention.flash_attention = kernel_path
     torch.cuda.synchronize()
@@ -2113,13 +2205,15 @@ def serve_path(model, cfg, dev, card) -> dict:
             "n_layers": cfg.n_layers, "times": times}
 
 
-def check_prefill_logits(model, cfg, dev, rtol: float, label: str) -> float:
+def check_prefill_logits(model, cfg, dev, rtol: float, label: str,
+                         lens=SERVE_LENS, window=SERVE_WINDOW) -> float:
     """Prefill logits through the kernel against the plain flash version
-    at each of the serve's prompt lengths, within `rtol` of the largest
-    logit; returns the largest relative error."""
+    at each of `lens`, within `rtol` of the largest logit; returns the
+    largest relative error."""
     worst = 0.0
-    for n in SERVE_LENS:
-        err, scale, finite = prefill_logits_vs_plain(model, cfg, dev, n)
+    for n in lens:
+        err, scale, finite = prefill_logits_vs_plain(model, cfg, dev, n,
+                                                     window)
         ok = finite and err <= rtol * scale
         log(f"serve path {label}: prefill logits (2 x {n} tokens) kernel vs "
             f"plain flash on the card: max|d| {err!r} (limit {rtol} x "
@@ -2271,6 +2365,311 @@ def serve_cpu_parity(dev) -> int:
     return launches
 
 
+# -- the moe and hybrid families and the int8 KV cache
+# mixtral-8x7b at its published widths, its depth cut to 8 of 32 layers
+# (~11.9e9 seeded bf16 weights, ~24 GB; all 32 would be ~93 GB, more than
+# the card holds); its ring cache is its 4096-token window
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 8
+MOE_LOGITS_LENS = (1024, 5120)      # one group inside the window, one past
+# zamba2-2.7b at full width and depth (54 Mamba2 layers, 9 applications
+# of the shared attention block): 2,422,532,000 weights, the reference's
+# param_count()
+HYBRID_ARCH, HYBRID_WINDOW = "zamba2-2.7b", 2048
+HYBRID_WEIGHTS = 2_422_532_000
+# card vs CPU at the reduced configs in float32 (hd = 16): (arch, config
+# overrides, prompt lengths); reduced mixtral's window is 32, so its
+# 40-token prompts seed the ring with S > W and decode wraps it
+FAMILY_CPU_CASES = (("mixtral-8x7b", {}, (40, 40, 36)),
+                    ("zamba2-2.7b", {}, (24, 24, 40)),
+                    ("llama3.2-1b", {"kv_dtype": "int8"}, (12, 12, 20)))
+FAMILY_CPU_NEW = 16
+FAMILY_LOGITS_RTOL = 2e-5   # card vs CPU prefill logits, float32
+
+
+def flash_per_dispatch(cfg) -> int:
+    """Flash launches of one prefill dispatch: one per attention layer
+    (hybrid: one per application of the shared block)."""
+    return (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+            else cfg.n_layers)
+
+
+def serve_family(model, cfg, lens, window, label, card) -> dict:
+    """One serve at full width, counted: the 16-request workload with
+    prompts of `lens` through `ServeEngine(n_slots=8, window, decode_chunk=
+    8)` in device mode, with the launch counters set to 0 just before the
+    run and read just after: every prefill dispatch launches
+    `flash_per_dispatch(cfg)` tensor-core kernels and no float32 one, and
+    every request emits its budget; the launches of dispatches whose
+    prompts are longer than the sliding window are counted apart. Then a
+    warm serve timed (wall, prefill and decode spans by `PhaseEvents`),
+    with the counted run's streams."""
+    per = flash_per_dispatch(cfg)
+    reset_counts()
+    with PhaseEvents(model) as counted_run:
+        eng, streams, first = run_engine(model, cfg, "device", lens, window)
+    counts = flash_counts()
+    prefills = eng.admit_syncs
+    W = cfg.sliding_window
+    windowed = sum(tc for _, S, tc, _ in counted_run.prefills
+                   if W and S > W)
+    n_long = sum(1 for _, S, _, _ in counted_run.prefills if W and S > W)
+    ok = (counts[torch.bfloat16] == per * prefills
+          and counts[torch.float32] == 0
+          and len(counted_run.prefills) == prefills
+          and all(tc == per and f32 == 0
+                  for _, _, tc, f32 in counted_run.prefills)
+          and windowed == per * n_long and (n_long > 0) == (W > 0)
+          and len(streams) == 4 * len(lens)
+          and all(len(t) == SERVE_MAX_NEW for t in streams.values())
+          and all(0 <= x < cfg.vocab_size for t in streams.values()
+                  for x in t))
+    log(f"serve path {label}: {cfg.name}, {len(streams)} requests (prompts "
+        f"{lens}), {sum(map(len, streams.values()))} tokens in {first:.2f} "
+        f"s (first run), {prefills} prefill dispatches (B, S) "
+        f"{[(b, n) for b, n, _, _ in counted_run.prefills]}, "
+        f"flash_attention_tc launches {counts[torch.bfloat16]} (expected "
+        f"{per} x {prefills})"
+        + (f", of which past the {W}-token window {windowed} (expected "
+           f"{per} x {n_long})" if W else "")
+        + f", float32 flash_attention launches {counts[torch.float32]} "
+        f"(expected 0) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError(f"serve path {label} counts or budgets")
+    with PhaseEvents(model) as phases:
+        eng, timed, wall = run_engine(model, cfg, "device", lens, window)
+    if timed != streams:
+        raise RuntimeError(f"the timed {label} serve's streams differ from "
+                           f"the counted run's")
+    pre_ms, dec_ms = phases.ms("prefill"), phases.ms("decode_loop")
+    n_prompt = sum(len(r.prompt) for r in serve_requests(cfg.vocab_size,
+                                                         lens))
+    n_new = sum(map(len, timed.values()))
+    n_decoded = n_new - len(timed)
+    times = dict(wall_s=wall, tokens=n_new, host_syncs=eng.host_syncs,
+                 prefill_ms=pre_ms, decode_ms=dec_ms,
+                 prefill_tok_s=n_prompt / (pre_ms / 1e3),
+                 decode_tok_s=n_decoded / (dec_ms / 1e3))
+    log(f"time serve {cfg.name} {label} warm: {len(timed)} requests, "
+        f"{n_prompt} prompt + {n_new} generated tokens in {wall!r} s "
+        f"({n_new / wall!r} generated tok/s), {eng.host_syncs} host syncs; "
+        f"prefill spans {pre_ms!r} ms over {len(phases.pairs['prefill'])} "
+        f"dispatches ({times['prefill_tok_s']!r} prompt tok/s); decode "
+        f"spans {dec_ms!r} ms over {len(phases.pairs['decode_loop'])} "
+        f"chunks ({times['decode_tok_s']!r} tok/s for the {n_decoded} "
+        f"tokens emitted by decode) [{card}]")
+    return {"launches": counts[torch.bfloat16], "prefills": prefills,
+            "per_dispatch": per, "windowed": windowed, "times": times}
+
+
+def int8_path(model, cfg, dev, card, bf16_times) -> dict:
+    """The bf16 llama3.2-1b serve again with `kv_dtype="int8"`: the same
+    seeded weights; prefill logits equal to the bf16 model's at each
+    prompt length (the cache is quantized after prefill); then the serve,
+    counted and timed as `serve_family` does, its wall and decode rate
+    beside the bf16 serve's."""
+    from repro_torch.models.model import Model
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    model8 = Model(cfg8, device=dev, seed=SEED)
+    same_w = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                   model8.parameters()))
+    equal = []
+    for n in SERVE_LENS:
+        rng = np.random.default_rng(SEED + n)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n)),
+                               dtype=torch.int32, device=dev)
+        want, _, _ = model.prefill({"tokens": toks}, W=SERVE_WINDOW)
+        got, cache, _ = model8.prefill({"tokens": toks}, W=SERVE_WINDOW)
+        equal.append(bool(torch.equal(got, want))
+                     and cache["k"].dtype == torch.int8
+                     and cache["ksc"].dtype == torch.bfloat16)
+    log(f"serve path int8: {cfg.name} with kv_dtype int8, same weights "
+        f"{same_w}; prefill logits equal to the bf16 model's at "
+        f"{SERVE_LENS}: {equal}; int8 cache with bf16 scales")
+    if not (same_w and all(equal)):
+        raise RuntimeError("int8 serve path prefill logits")
+    served = serve_family(model8, cfg8, SERVE_LENS, SERVE_WINDOW, "int8",
+                          card)
+    t = served["times"]
+    log(f"time serve {cfg.name} int8 KV against bf16 KV (warm, the same "
+        f"workload): wall {t['wall_s']!r} s against {bf16_times['wall_s']!r}"
+        f" s; decode {t['decode_tok_s']!r} tok/s against "
+        f"{bf16_times['decode_tok_s']!r} tok/s [{card}]")
+    del model8
+    torch.cuda.empty_cache()
+    return served
+
+
+def moe_path(dev, card) -> dict:
+    """The moe serve: mixtral-8x7b at its published widths, depth cut to
+    `MOE_LAYERS`, bf16 seeded weights, the 16 requests of `MOE_LENS`
+    (the 5120-token prompts put the window mask into the prefill kernel,
+    seed the ring with S > W and decode past its wrap) through
+    `serve_family`; then prefill logits through the kernel against the
+    plain flash version at `MOE_LOGITS_LENS`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"serve path moe: {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+        f"{cfg.hd()}, d_ff {cfg.d_ff}, {cfg.n_experts} experts top "
+        f"{cfg.top_k}, window {cfg.sliding_window}), depth cut to "
+        f"{cfg.n_layers} of {full.n_layers} layers: {model.param_count()} "
+        f"bf16 weights ({model.param_count(active_only=True)} active), "
+        f"seeded init on the card in {time.perf_counter() - t0:.2f} s")
+    served = serve_family(model, cfg, MOE_LENS, MOE_WINDOW, "moe", card)
+    served["logits_rel"] = check_prefill_logits(
+        model, cfg, dev, LOGITS_RTOL, "moe bf16", lens=MOE_LOGITS_LENS,
+        window=MOE_WINDOW)
+    del model
+    torch.cuda.empty_cache()
+    return served
+
+
+def plain_schedules_gap(model, dev, n: int, window: int) -> tuple:
+    """Prefill logits of two n-token prompts through the plain flash
+    version at its default schedule and at chunk_kv 64, on the card:
+    (max |difference|, largest logit). Both are the same function; what
+    separates them is bf16 rounding, as it separates kernel and plain."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+    from repro_torch.models import attention
+    rng = np.random.default_rng(SEED + n)
+    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (2, n)),
+                           dtype=torch.int32, device=dev)
+    kernel_path = attention.flash_attention
+    outs = []
+    try:
+        for chunk_kv in (1024, 64):
+            attention.flash_attention = (
+                lambda q, k, v, _c=chunk_kv, **kw: flash_attention_plain(
+                    q, k, v, **{**kw, "chunk_kv": _c}))
+            outs.append(model.prefill({"tokens": toks}, W=window)[0])
+    finally:
+        attention.flash_attention = kernel_path
+    return (float((outs[0] - outs[1]).abs().max()),
+            float(outs[0].abs().max()))
+
+
+def hybrid_path(dev, card) -> dict:
+    """The hybrid serve: zamba2-2.7b at full width and depth, bf16 seeded
+    weights (the reference's weight count), the 16 requests of
+    `HYBRID_LENS` through `serve_family` (9 hd = 80 flash launches per
+    prefill dispatch). Then prefill logits through the kernel against the
+    plain flash version at each prompt length, on the model cut to its
+    first group (6 Mamba2 layers and one application of the shared
+    block): with seeded random weights the 54-layer stack amplifies bf16
+    rounding, so at full depth even two schedules of the plain version
+    part by a fifth of the largest logit; the full-depth gaps, kernel vs
+    plain and plain vs plain, are printed beside each other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    n = model.param_count()
+    log(f"serve path hybrid: {cfg.name} at full width and depth ({cfg.n_layers}"
+        f" Mamba2 layers, the shared attention block after every "
+        f"{cfg.attn_every}, hd {cfg.hd()}): {n} bf16 weights (expected "
+        f"{HYBRID_WEIGHTS}), seeded init on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n != HYBRID_WEIGHTS:
+        raise RuntimeError("hybrid weight count")
+    served = serve_family(model, cfg, HYBRID_LENS, HYBRID_WINDOW, "hybrid",
+                          card)
+    n = HYBRID_LENS[-1]
+    err, scale, _ = prefill_logits_vs_plain(model, cfg, dev, n,
+                                            HYBRID_WINDOW)
+    floor, _ = plain_schedules_gap(model, dev, n, HYBRID_WINDOW)
+    log(f"serve path hybrid bf16, all {cfg.n_layers} layers, 2 x {n} "
+        f"tokens: prefill logits kernel vs plain flash max|d| {err!r}, "
+        f"plain (chunk_kv 1024) vs plain (chunk_kv 64) {floor!r}, largest "
+        f"logit {scale!r} (not checked: the seeded stack amplifies bf16 "
+        f"rounding)")
+    del model
+    torch.cuda.empty_cache()
+    shallow_cfg = dataclasses.replace(cfg, n_layers=cfg.attn_every)
+    shallow = Model(shallow_cfg, device=dev, seed=SEED)
+    served["logits_rel"] = check_prefill_logits(
+        shallow, shallow_cfg, dev, LOGITS_RTOL,
+        f"hybrid bf16 (first group: {shallow_cfg.n_layers} Mamba2 layers "
+        f"and the shared block)", lens=HYBRID_LENS, window=HYBRID_WINDOW)
+    served["full_depth_gaps"] = (err, floor, scale)
+    del shallow
+    torch.cuda.empty_cache()
+    return served
+
+
+def family_cpu_parity(dev) -> int:
+    """Card against CPU at the reduced configs in float32 (TF32 off):
+    mixtral (prompts longer than its window), zamba2 and llama with an
+    int8 cache. Weights made on the CPU and copied to the card; prefill
+    logits of the first admission group within `FAMILY_LOGITS_RTOL` of the
+    largest; greedy streams equal on the card in device and host mode and
+    on the CPU; the card's device-mode run counted (every prefill
+    attention through the float32 kernel). Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = 0
+    for arch, over, lens in FAMILY_CPU_CASES:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", **over)
+        cpu = Model(cfg, device="cpu", seed=SEED)
+        card = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(SEED + 3)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        toks = np.stack(prompts[:2])
+        want, _, _ = cpu.prefill({"tokens": torch.as_tensor(toks)}, W=64)
+        got, _, _ = card.prefill({"tokens": torch.as_tensor(toks,
+                                                             device=dev)},
+                                 W=64)
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        streams = []
+        for model, mode in ((card, "device"), (card, "host"),
+                            (cpu, "device")):
+            eng = ServeEngine(cfg, model, n_slots=2, window=64, mode=mode,
+                              decode_chunk=SERVE_CHUNK, seed=SEED)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p,
+                                   max_new_tokens=FAMILY_CPU_NEW))
+            counting = model is card and mode == "device"
+            if counting:
+                reset_counts()
+            done, _ = eng.run()
+            if counting:
+                counts = flash_counts()
+                want_n = flash_per_dispatch(cfg) * eng.admit_syncs
+            streams.append({r.rid: r.out_tokens for r in done})
+        same = (streams[0] == streams[1] == streams[2]
+                and all(len(t) == FAMILY_CPU_NEW for t in streams[0].values()))
+        ok = (same and err <= FAMILY_LOGITS_RTOL * scale
+              and counts[torch.float32] == want_n
+              and counts[torch.bfloat16] == 0)
+        log(f"serve card vs CPU: {cfg.name} ({cfg.family}"
+            f"{', int8 KV' if cfg.kv_dtype == 'int8' else ''}"
+            f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}"
+            f"), float32, prompts {lens} x {FAMILY_CPU_NEW} greedy tokens: "
+            f"card device = card host = CPU {same}; prefill logits max|d| "
+            f"{err!r} (limit {FAMILY_LOGITS_RTOL} x {scale!r}); float32 "
+            f"flash_attention launches {counts[torch.float32]} (expected "
+            f"{want_n}), flash_attention_tc {counts[torch.bfloat16]} "
+            f"(expected 0) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"card vs CPU {cfg.name}")
+        total += counts[torch.float32]
+    return total
+
+
 def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
     """One flash-attention kernel at `shapes` in `dtype`: CUDA events
     (plain, kernel, SDPA, kernel, plain, SDPA in turns) and profiler device
@@ -2285,17 +2684,28 @@ def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
     out = {}
     for shape in shapes:
         q, k, v = flash_inputs(shape, dtype, dev)
+        window = flash_args(shape)[2]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        kern = lambda: flash_attention_fwd(q, k, v)
-        plain = lambda: flash_attention_plain(q, k, v)
-        lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        kern = lambda: flash_attention_fwd(q, k, v, window=window)
+        plain = lambda: flash_attention_plain(q, k, v, window=window)
+        if window:
+            # SDPA with an explicit (Sq, Skv) mask: causal and windowed
+            i = torch.arange(shape[1], device=dev)[:, None]
+            j = torch.arange(shape[2], device=dev)[None, :]
+            mask = (j <= i) & (i - j < window)
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
         p1, k1, l1 = time_ms(plain, 10), time_ms(kern, 50), time_ms(lib, 50)
         k2, p2, l2 = time_ms(kern, 50), time_ms(plain, 10), time_ms(lib, 50)
         d = device_ms(kern, kernel_name, reps=20)
         nbytes, flops = flash_work(shape, itemsize)
         bound, by = bound_of(nbytes, flops, peak)
-        label = f"B={shape[0]} S={shape[1]}"
+        label = f"B={shape[0]} S={shape[1]}" + (
+            f" hd={shape[5]}" if shape[5] != 64 else "") + (
+            f" window={window}" if window else "")
         ms = (k1 + k2) / 2
         out[label] = dict(ms=ms, device_ms=d, plain_ms=(p1 + p2) / 2,
                           library_ms=(l1 + l2) / 2, bound_ms=bound,
@@ -2326,9 +2736,19 @@ def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
 def time_flash(dev, card) -> dict:
     """The tensor-core kernel at the serve's four prefill shapes, the
     float32 kernel at the same four (the full-width float32 serve's) and at
-    the 2-layer float32 serve's two; each mean is a serve's mean per launch
-    (each shape is launched equally often)."""
-    return {"tc": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
+    the 2-layer float32 serve's two; both kernels at the hybrid serve's
+    four (zamba2, hd = 80) and at the moe serve's windowed shape (mixtral,
+    window 4096); each mean is a serve's mean per launch over the shapes
+    it launches equally often."""
+    new = {}
+    for dtype, key, name in ((torch.bfloat16, "tc", "flash_attention_tc_kernel"),
+                             (torch.float32, "f32", "flash_attention_kernel")):
+        new[f"{key}_hybrid"] = time_flash_shapes(
+            dev, card, HYBRID_FLASH_SHAPES, dtype, name)
+        new[f"{key}_moe"] = time_flash_shapes(
+            dev, card, (MOE_FLASH_SHAPE,), dtype, name)
+    return {**new,
+            "tc": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
                                     torch.bfloat16,
                                     "flash_attention_tc_kernel"),
             "f32": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
@@ -2524,8 +2944,9 @@ def hold_responses(label, got, want, reqs) -> dict:
 
 
 def codesign_path(card) -> None:
-    """`CoDesignQuery` through `Session(device="cuda")`: the dense archs
-    and the README's quickstart, each in a fresh session with the counters
+    """`CoDesignQuery` through `Session(device="cuda")`: the dense archs,
+    mixtral-8x7b with zamba2-2.7b, and the README's quickstart, each in a
+    fresh session with the counters
     at 0: no kernel launch, one vdd evaluation and one cube; held to the
     CPU session's report; a fresh session on the store the first wrote
     evaluates nothing; the warm wall."""
@@ -2534,6 +2955,9 @@ def codesign_path(card) -> None:
     queries = {
         "dense archs": CoDesignQuery(tuple(
             profile_arch(a, CODESIGN_SHAPE) for a in CODESIGN_ARCHS)),
+        "moe and hybrid archs": CoDesignQuery(tuple(
+            profile_arch(a, CODESIGN_SHAPE) for a in (MOE_ARCH,
+                                                      HYBRID_ARCH))),
         "README quickstart": CoDesignQuery(tuple(
             profile_arch(a, CODESIGN_SHAPE) for a in README_ARCHS),
             vdd_scales=VDD_LADDER)}
@@ -3039,6 +3463,7 @@ def codesign_fleet_phase(dev, cfgs, cpu_chars, n_groups, card) -> dict:
 
 
 def main() -> int:
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -3057,7 +3482,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
 
     # -- 1. card and toolchain
     nvcc = subprocess.run([build.nvcc_path(), "--version"], check=True,
@@ -3076,7 +3501,10 @@ def main() -> int:
     for kname, path in paths.items():
         logf = path.with_suffix(".log")
         for line in (logf.read_text().splitlines() if logf.exists() else []):
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+                log(f"  {kname}: {entry}")
+            elif "registers" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
 
     # -- 3. kernels against their plain versions on the card
@@ -3238,10 +3666,17 @@ def main() -> int:
         f"{cfg.vocab_size}, {cfg.dtype}, {model.param_count()} weights, "
         f"seeded init on the card in {time.perf_counter() - t0:.2f} s")
     served = serve_path(model, cfg, dev, card)
+    served_int8 = int8_path(model, cfg, dev, card, served["times"])
     del model
     torch.cuda.empty_cache()
     served_f32 = serve_path_f32(dev, card)
     parity_launches = serve_cpu_parity(dev)
+
+    # -- 11b. the moe and hybrid families at full width, counted, and the
+    # reduced configs on the card against the CPU
+    served_moe = moe_path(dev, card)
+    served_hybrid = hybrid_path(dev, card)
+    family_launches = family_cpu_parity(dev)
 
     # -- 12. co-design, the measured loop at full width, the compile
     # service and the fleet on the card, each counted and held to the CPU;
@@ -3362,16 +3797,40 @@ def main() -> int:
     # phase does not launch; the fleet's are summed over its workers)
     for k in kernels:
         k["phase12_launches"] = phase12.get(k["name"], {})
+    # the flash rows gain the launches of the moe, hybrid and int8 serves
+    # (phase 11b; the tensor-core kernel's) and of the reduced card-vs-CPU
+    # runs (the float32 kernel's), and their times at the new shapes
+    rows = {k["name"]: k for k in kernels}
+    rows["flash_attention_tc"].update(
+        moe_launches=served_moe["launches"],
+        moe_windowed_launches=served_moe["windowed"],
+        hybrid_launches=served_hybrid["launches"],
+        int8_launches=served_int8["launches"])
+    rows["flash_attention"]["family_cpu_parity_launches"] = family_launches
+    for key, row in (("tc", "flash_attention_tc"),
+                     ("f32", "flash_attention")):
+        rows[row]["new_shapes"] = {
+            f"{part} {label}": {f: t[f] for f in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}
+            for part in ("hybrid", "moe")
+            for label, t in fa_times[f"{key}_{part}"].items()
+            if label != "mix"}
     if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0 \
             or parity_launches <= 0 or matched["launches"] <= 0 or any(
                 s["launches"] != s["n_layers"] * s["prefills"]
-                for s in (served, served_f32)):
+                for s in (served, served_f32)) or any(
+                s["launches"] != s["per_dispatch"] * s["prefills"]
+                or s["launches"] <= 0
+                for s in (served_moe, served_hybrid, served_int8)) \
+            or served_moe["windowed"] <= 0 or family_launches <= 0:
         log("FAILED: a kernel of a path was never launched")
         return 1
+    log(f"smoke total wall: {time.perf_counter() - t_smoke!r} s [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

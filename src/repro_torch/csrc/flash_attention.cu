@@ -8,7 +8,8 @@
 // reference's float32 contract (2e-5). For every query row of every query
 // head it computes, in float32:
 //   s_j = (q . k_j) * (1/sqrt(hd)), masked to -1e30 where the key is after
-//         the query (causal) or at or beyond kv_len;
+//         the query (causal), `window` or more positions before it
+//         (window > 0), or at or beyond kv_len;
 //   per key tile of BKV = 64 keys (from key 0): m_new = max(m, max_j s_j);
 //         corr = expf(m - m_new); p_j = expf(s_j - m_new);
 //         l = l*corr + sum_j p_j; acc = acc*corr + sum_j p_j v_j;
@@ -28,9 +29,22 @@
 // wrapper pads KV with zero keys that stay unmasked when q_offset + Sq >
 // Skv).
 //
+// Window: key j is seen by query i (at position q_offset + i) iff j <= i
+// (causal), i - j < window and j < kv_len, the model's mask (repro/models/
+// attention.py:144-147). A block starts at the key tile that holds its
+// first query's first key in the window; the tiles before it are not
+// staged. A tile wholly masked for a row changes nothing: before the row's
+// first unmasked tile its running sums are scaled away by corr =
+// exp(-1e30 - m) = 0 exactly, after it they gain p = 0. A row whose window
+// holds no key below kv_len is undefined.
+//
 // Layouts (row-major, contiguous, float32, 16-byte aligned): q, o (B, Sq,
 // H, hd); k, v (B, Skv, K, hd); H = K * G, query head h = kv head h / G,
-// group h % G; hd is 16, 32, 64 or 128.
+// group h % G; hd is any multiple of 8 from 8 to 256. The kernel is
+// instantiated for the padded width HDP, hd rounded up to a multiple of
+// 16 (the narrow tiling's 16 lanes a row): Q, K and V rows are staged with
+// zeros in the columns from hd to HDP, which add exactly nothing to a
+// score's sum, and the output columns from hd on are not written.
 //
 // Design: the rows of (query, group) pairs of one kv head, all Sq * G of
 // them in query-major order, are cut into row tiles; a block of 1, 2 or 4
@@ -90,8 +104,8 @@ constexpr int R = 8;               // rows per thread
 constexpr int MAX_WARPS = 4;
 constexpr float NEG_INF = -1e30f;
 
-// how a block's threads share the work: HD_ is the head dimension, TPR_
-// the lanes of a row group (8: a thread's score micro-tile is R x 8 keys
+// how a block's threads share the work: HD_ is the padded head dimension,
+// TPR_ the lanes of a row group (8: a thread's score micro-tile is R x 8 keys
 // and its accumulator R x hd / 8; 16: R x 4 and R x hd / 16)
 template <int HD_, int TPR_>
 struct Tiling {
@@ -111,6 +125,7 @@ constexpr int ERR_SHAPE = -1;
 constexpr int ERR_HEAD_DIM = -2;
 constexpr int ERR_KV_LEN = -4;
 constexpr int ERR_ALIGN = -5;
+constexpr int MAX_HD = 256;
 
 // dynamic shared memory of a block of `warps` warps: Q, P, one K tile and
 // one V tile
@@ -145,15 +160,16 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // stage key rows [t0, t0 + BKV) of K or V (`src`, rows `stride` floats
 // apart) into `dst`, and commit them as one copy group; rows at or beyond
-// kv_len are zero-filled and not read
+// kv_len, and the columns at or beyond hd, are zero-filled and not read
 template <class T>
 __device__ __forceinline__ void stage_tile(const float* src, size_t stride,
-                                           int t0, int kv_len, float* dst) {
+                                           int t0, int kv_len, int hd,
+                                           float* dst) {
   constexpr int CH = T::HD / 4;
   constexpr int KS = T::RS;
   for (int e = threadIdx.x; e < BKV * CH; e += blockDim.x) {
     const int j = e / CH, c = e - j * CH, kp = t0 + j;
-    const bool in = kp < kv_len;
+    const bool in = kp < kv_len && 4 * c < hd;
     cp_async16(dst + j * KS + 4 * c,
                src + static_cast<size_t>(in ? kp : 0) * stride + 4 * c, in);
   }
@@ -179,13 +195,17 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <class T>
+// WIN = false: a launch with no window, where the window's tests vanish
+// (a runtime test slowed the dense serves' S = 1024 launch by 6%); WIN =
+// true takes any window, and every launch at HD > 128
+template <class T, bool WIN>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int B, int Sq, int Skv, int H, int K, int q_offset,
-                       int kv_len, int causal, int n_tiles, float scale) {
+                       int B, int Sq, int Skv, int H, int K, int hd,
+                       int q_offset, int kv_len, int causal, int window,
+                       int n_tiles, float scale) {
   constexpr int HD = T::HD;
   constexpr int TPR = T::TPR, C = T::C, CPT = T::CPT, PS = T::PS;
   constexpr int QS = T::RS, KS = T::RS;
@@ -211,27 +231,34 @@ flash_attention_kernel(const float* __restrict__ q,
   // at or before `clean` holds no masked key for any row of the block
   const int n_keys = causal ? min(kv_len, q_last + 1) : kv_len;
   const int clean = causal ? min(kv_len, q_first + 1) : kv_len;
+  // with a window: the block's first key tile, and the first key from
+  // which every row of the block sees every key (before it tiles are
+  // masked)
+  const bool win = WIN && window > 0;
+  const int t_first = win ? max(0, q_first - window + 1) / BKV : 0;
+  const int w_clean = win ? q_last - window + 1 : 0;
 
   const int tid = threadIdx.x;
   const int rg = tid / TPR, kg = tid % TPR;
-  const size_t kv_stride = static_cast<size_t>(K) * HD;
-  const float* kb = k + static_cast<size_t>(b) * Skv * kv_stride + kh * HD;
-  const float* vb = v + static_cast<size_t>(b) * Skv * kv_stride + kh * HD;
+  const size_t kv_stride = static_cast<size_t>(K) * hd;
+  const float* kb = k + static_cast<size_t>(b) * Skv * kv_stride + kh * hd;
+  const float* vb = v + static_cast<size_t>(b) * Skv * kv_stride + kh * hd;
 
-  // copy groups in flight: Q's row tile with K tile 0, then V tile 0
+  // copy groups in flight: Q's row tile with the first K tile, then the
+  // first V tile
   for (int e = tid; e < rows * (HD / 4); e += blockDim.x) {
     const int lr = e / (HD / 4), c = e - lr * (HD / 4);
     const int r = r0 + lr;
-    const bool in = r < n_rows;
-    const int qi = in ? r / G : 0;
-    const int g = in ? r - qi * G : 0;
+    const bool in = r < n_rows && 4 * c < hd;
+    const int qi = r < n_rows ? r / G : 0;
+    const int g = r < n_rows ? r - qi * G : 0;
     cp_async16(qs + lr * QS + 4 * c,
-               q + ((static_cast<size_t>(b) * Sq + qi) * H + kh * G + g) * HD
-                   + 4 * c,
+               q + ((static_cast<size_t>(b) * Sq + qi) * H + kh * G + g) * hd
+                   + (in ? 4 * c : 0),
                in);
   }
-  stage_tile<T>(kb, kv_stride, 0, kv_len, ks);
-  stage_tile<T>(vb, kv_stride, 0, kv_len, vs);
+  stage_tile<T>(kb, kv_stride, t_first * BKV, kv_len, hd, ks);
+  stage_tile<T>(vb, kv_stride, t_first * BKV, kv_len, hd, vs);
 
   // this thread's rows: rg + n_rg * i of the row tile
   float m[R], l[R], acc[R][CPT];
@@ -244,7 +271,7 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 
   const int n_kt = (n_keys + BKV - 1) / BKV;
-  for (int t = 0; t < n_kt; ++t) {
+  for (int t = t_first; t < n_kt; ++t) {
     const int t0 = t * BKV;
     const bool more = t + 1 < n_kt;
     cp_async_wait<1>();      // K tile t is in (this thread's copies) ...
@@ -282,10 +309,10 @@ flash_attention_kernel(const float* __restrict__ q,
     cp_async_wait<0>();      // V tile t is in
     __syncthreads();         // ... everywhere, and K tile t is read
     // the next K tile loads during softmax and P V
-    if (more) stage_tile<T>(kb, kv_stride, t0 + BKV, kv_len, ks);
+    if (more) stage_tile<T>(kb, kv_stride, t0 + BKV, kv_len, hd, ks);
 
     // online softmax, one refresh per tile; p to shared memory
-    const bool edge = t0 + BKV > clean;
+    const bool edge = t0 + BKV > clean || (win && t0 < w_clean);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int qpos = q_offset + (r0 + rg + n_rg * i) / G;
@@ -295,7 +322,8 @@ flash_attention_kernel(const float* __restrict__ q,
         float x = s[i][j] * scale;
         if (edge) {
           const int kp = t0 + kg + TPR * j;
-          const bool keep = kp < kv_len && (!causal || kp <= qpos);
+          const bool keep = kp < kv_len && (!causal || kp <= qpos)
+                            && (!win || qpos - kp < window);
           x = keep ? x : NEG_INF;
         }
         s[i][j] = x;
@@ -330,7 +358,7 @@ flash_attention_kernel(const float* __restrict__ q,
       for (int jj = 0; jj < 4; ++jj) {
         const float* vr = vt + (j + jj) * KS;
         float vv[CPT];
-        if constexpr (CPT >= 4) {
+        if constexpr (CPT % 4 == 0) {
 #pragma unroll
           for (int ch = 0; ch < CPT / 4; ++ch) {
             const float4 x = *reinterpret_cast<const float4*>(
@@ -355,7 +383,7 @@ flash_attention_kernel(const float* __restrict__ q,
     }
     __syncthreads();         // V tile t and P are read
     // the next V tile loads during the next Q K^T
-    if (more) stage_tile<T>(vb, kv_stride, t0 + BKV, kv_len, vs);
+    if (more) stage_tile<T>(vb, kv_stride, t0 + BKV, kv_len, hd, vs);
   }
 
 #pragma unroll
@@ -364,18 +392,23 @@ flash_attention_kernel(const float* __restrict__ q,
     if (r >= n_rows) continue;
     const int qi = r / G, g = r - qi * G;
     float* orow = o + ((static_cast<size_t>(b) * Sq + qi) * H + kh * G + g)
-                          * HD;
+                          * hd;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    if constexpr (CPT >= 4) {
+    // only the columns below hd (hd is a multiple of 4, so a float4 group
+    // lies wholly below it or wholly in the padding)
+    if constexpr (CPT % 4 == 0) {
 #pragma unroll
       for (int ch = 0; ch < CPT / 4; ++ch)
-        *reinterpret_cast<float4*>(orow + 4 * TPR * ch + 4 * kg) =
-            make_float4(acc[i][4 * ch] / l_safe, acc[i][4 * ch + 1] / l_safe,
-                        acc[i][4 * ch + 2] / l_safe,
-                        acc[i][4 * ch + 3] / l_safe);
+        if (4 * TPR * ch + 4 * kg < hd)
+          *reinterpret_cast<float4*>(orow + 4 * TPR * ch + 4 * kg) =
+              make_float4(acc[i][4 * ch] / l_safe,
+                          acc[i][4 * ch + 1] / l_safe,
+                          acc[i][4 * ch + 2] / l_safe,
+                          acc[i][4 * ch + 3] / l_safe);
     } else {
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) orow[kg + TPR * c] = acc[i][c] / l_safe;
+      for (int c = 0; c < CPT; ++c)
+        if (kg + TPR * c < hd) orow[kg + TPR * c] = acc[i][c] / l_safe;
     }
   }
 }
@@ -401,27 +434,37 @@ int row_tiles(int n_rows, int warps) {
 }
 
 template <class T>
-int launch_tiled(int warps, int B, int Sq, int Skv, int H, int K,
-                 int q_offset, int kv_len, int causal, const void* q,
-                 const void* k, const void* v, void* o, cudaStream_t stream) {
+int launch_tiled(int warps, int B, int Sq, int Skv, int H, int K, int hd,
+                 int q_offset, int kv_len, int causal, int window,
+                 const void* q, const void* k, const void* v, void* o,
+                 cudaStream_t stream) {
+  constexpr bool FAST = T::HD <= 128;  // has a WIN = false instance
+  auto kernel = flash_attention_kernel<T, true>;
+  if constexpr (FAST) {
+    if (window == 0) kernel = flash_attention_kernel<T, false>;
+  }
   static bool sized = false;
   if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<T>(MAX_WARPS)));
+    auto size = [](auto fn) {
+      return cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem_bytes<T>(MAX_WARPS)));
+    };
+    cudaError_t err = size(flash_attention_kernel<T, true>);
+    if constexpr (FAST) {
+      if (err == cudaSuccess) err = size(flash_attention_kernel<T, false>);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
   const int n_tiles = row_tiles<T>(Sq * (H / K), warps);
   // 1/sqrt(hd) rounded once to float32, as the reference's float64 scale
   const float scale =
-      static_cast<float>(1.0 / sqrt(static_cast<double>(T::HD)));
-  flash_attention_kernel<T>
-      <<<n_tiles * B * K, 32 * warps, smem_bytes<T>(warps), stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Skv,
-          H, K, q_offset, kv_len, causal, n_tiles, scale);
+      static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  kernel<<<n_tiles * B * K, 32 * warps, smem_bytes<T>(warps), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Skv, H, K,
+      hd, q_offset, kv_len, causal, window, n_tiles, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,64 +472,73 @@ int launch_tiled(int warps, int B, int Sq, int Skv, int H, int K,
 // the narrow one in the largest block that still gives every SM one (see
 // the header).
 template <int HD>
-int launch_hd(int B, int Sq, int Skv, int H, int K, int q_offset, int kv_len,
-              int causal, const void* q, const void* k, const void* v,
-              void* o, cudaStream_t stream) {
+int launch_hd(int B, int Sq, int Skv, int H, int K, int hd, int q_offset,
+              int kv_len, int causal, int window, const void* q,
+              const void* k, const void* v, void* o, cudaStream_t stream) {
   using Wide = Tiling<HD, 8>;
   using Narrow = Tiling<HD, 16>;
   const int n_rows = Sq * (H / K);
   const long long heads = static_cast<long long>(B) * K;
   if constexpr (HD <= 64) {
     if (row_tiles<Wide>(n_rows, MAX_WARPS) * heads >= 2LL * sm_count())
-      return launch_tiled<Wide>(MAX_WARPS, B, Sq, Skv, H, K, q_offset,
-                                kv_len, causal, q, k, v, o, stream);
+      return launch_tiled<Wide>(MAX_WARPS, B, Sq, Skv, H, K, hd, q_offset,
+                                kv_len, causal, window, q, k, v, o, stream);
   }
   int warps = MAX_WARPS;
   while (warps > 1 && row_tiles<Narrow>(n_rows, warps) * heads < sm_count())
     warps /= 2;
-  return launch_tiled<Narrow>(warps, B, Sq, Skv, H, K, q_offset, kv_len,
-                              causal, q, k, v, o, stream);
+  return launch_tiled<Narrow>(warps, B, Sq, Skv, H, K, hd, q_offset, kv_len,
+                              causal, window, q, k, v, o, stream);
+}
+
+// the instantiation for the padded width HDP = hd rounded up to 16
+template <int HD>
+int launch_padded(int hdp, int B, int Sq, int Skv, int H, int K, int hd,
+                  int q_offset, int kv_len, int causal, int window,
+                  const void* q, const void* k, const void* v, void* o,
+                  cudaStream_t stream) {
+  if (hdp == HD)
+    return launch_hd<HD>(B, Sq, Skv, H, K, hd, q_offset, kv_len, causal,
+                         window, q, k, v, o, stream);
+  if constexpr (HD < MAX_HD)
+    return launch_padded<HD + 16>(hdp, B, Sq, Skv, H, K, hd, q_offset,
+                                  kv_len, causal, window, q, k, v, o,
+                                  stream);
+  return ERR_HEAD_DIM;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v and o float32, contiguous, 16-byte aligned. chunk: the model's
-// chunk_kv (>= 1); checked, but this kernel refreshes its running max once
-// per 64-key tile whatever it is (see the header).
+// q, k, v and o float32, contiguous, 16-byte aligned. window: 0 for none,
+// else keys window or more positions before the query are masked. chunk:
+// the model's chunk_kv (>= 1); checked, but this kernel refreshes its
+// running max once per 64-key tile whatever it is (see the header).
 // Returns 0, a negative argument error, or the cudaError_t of the launch.
 int flash_attention_launch(int B, int Sq, int Skv, int H, int K, int hd,
-                           int q_offset, int kv_len, int causal, int chunk,
-                           const void* q, const void* k, const void* v,
-                           void* o, void* stream) {
+                           int q_offset, int kv_len, int causal, int window,
+                           int chunk, const void* q, const void* k,
+                           const void* v, void* o, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || K < 1 || H < K || H % K != 0 ||
-      q_offset < 0 || chunk < 1)
+      q_offset < 0 || chunk < 1 || window < 0)
     return ERR_SHAPE;
   if (kv_len < 1 || kv_len > Skv) return ERR_KV_LEN;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return ERR_ALIGN;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_hd<16>(B, Sq, Skv, H, K, q_offset, kv_len, causal,
-                                  q, k, v, o, st);
-    case 32: return launch_hd<32>(B, Sq, Skv, H, K, q_offset, kv_len, causal,
-                                  q, k, v, o, st);
-    case 64: return launch_hd<64>(B, Sq, Skv, H, K, q_offset, kv_len, causal,
-                                  q, k, v, o, st);
-    case 128: return launch_hd<128>(B, Sq, Skv, H, K, q_offset, kv_len,
-                                    causal, q, k, v, o, st);
-    default: return ERR_HEAD_DIM;
-  }
+  if (hd < 8 || hd > MAX_HD || hd % 8 != 0) return ERR_HEAD_DIM;
+  return launch_padded<16>((hd + 15) / 16 * 16, B, Sq, Skv, H, K, hd,
+                           q_offset, kv_len, causal, window, q, k, v, o,
+                           static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error(int code) {
   switch (code) {
     case ERR_SHAPE:
-      return "need B, Sq, Skv, K, chunk >= 1, H a multiple of K and "
-             "q_offset >= 0";
-    case ERR_HEAD_DIM: return "head_dim must be 16, 32, 64 or 128";
+      return "need B, Sq, Skv, K, chunk >= 1, H a multiple of K, "
+             "q_offset >= 0 and window >= 0";
+    case ERR_HEAD_DIM: return "head_dim must be a multiple of 8 in 8..256";
     case ERR_KV_LEN: return "kv_len must lie in 1..Skv";
     case ERR_ALIGN: return "q, k, v and o must be 16-byte aligned";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));

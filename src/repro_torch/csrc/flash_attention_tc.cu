@@ -8,8 +8,9 @@
 // head it computes, in float32:
 //   s_j = (q . k_j) * (1/sqrt(hd)): the product on the tensor cores from
 //         the bf16 operands, the scale multiplied after it (not folded into
-//         q), masked to -1e30 where the key is after the query (causal) or
-//         at or beyond kv_len;
+//         q), masked to -1e30 where the key is after the query (causal),
+//         `window` or more positions before it (window > 0), or at or
+//         beyond kv_len;
 //   per chunk of `chunk` keys (from key 0): m_new = max(m, max_j s_j);
 //         corr = expf(m - m_new); p_j = expf(s_j - m_new) (expf, not exp2f
 //         with log2(e) folded in, so that p rounds as torch.exp's does);
@@ -26,6 +27,19 @@
 // are zero-filled) and key tiles wholly masked for a warp's rows are not
 // multiplied, since their p is exactly 0.
 //
+// Window: key j is seen by query i (at position q_offset + i) iff j <= i
+// (causal), i - j < window and j < kv_len, the mask of the model's flash
+// attention (repro/models/attention.py:144-147). A block starts its key
+// loop at the tile that holds its first query's first key in the window;
+// the tiles before it are not staged. That gives the same output: a row's
+// own key is always in its window, so every row meets an unmasked key at
+// or after every tile skipped for it, and the chunk that holds that key
+// either refreshes the max to a real score (a skipped chunk before it
+// would have been scaled away by corr = exp(-1e30 - m) = 0 exactly) or
+// already had one (a skipped tile inside it would add p = 0 exactly). A
+// row whose window holds no key below kv_len is undefined (the plain
+// version gives a mean of masked values there, the kernel zeros).
+//
 // Chunk max: two passes over each chunk's key tiles. The first multiplies
 // Q K^T and keeps each row's largest unmasked product, scaled once at the
 // chunk's end (scale > 0 and rounding is monotonic, so that is the max of
@@ -39,7 +53,14 @@
 //
 // Layouts (row-major, contiguous, 16-byte aligned): q, o (B, Sq, H, hd);
 // k, v (B, Skv, K, hd); H = K * G, query head h = kv head h / G, group
-// h % G. hd is 16, 32, 64 or 128.
+// h % G. hd is any multiple of 8 from 8 to 256 (a 16-byte row of bf16 is
+// the cp.async unit). The kernel is instantiated for the padded width HDP,
+// hd rounded up to a multiple of 16 (the mma k-dimension of Q K^T): Q's
+// fragments and the staged K and V rows hold zeros in the columns from hd
+// to HDP, which add nothing to a score, and the P V columns from hd on are
+// not written. A staged row is HDP / 8 chunks of 16 bytes in a row of
+// `row_chunks(HDP)` chunk slots (2, 4, or a multiple of 8), so that the
+// XOR swizzle below stays inside the row.
 //
 // Design: the rows of (query, group) pairs of one kv head, all Sq * G of
 // them in query-major order, are cut into tiles of 64 rows; a block of 4
@@ -93,17 +114,25 @@ constexpr int ERR_HEAD_DIM = -2;
 constexpr int ERR_GROUP = -3;
 constexpr int ERR_KV_LEN = -4;
 constexpr int ERR_ALIGN = -5;
+constexpr int MAX_HD = 256;
+
+// 16-byte chunk slots of a staged row of HDP bf16: HDP / 8 when that is 2
+// or 4, else HDP / 8 rounded up to a multiple of 8 (the swizzle's span)
+__host__ __device__ constexpr int row_chunks(int hdp) {
+  return hdp / 8 <= 4 ? hdp / 8 : (hdp / 8 + 7) / 8 * 8;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// byte offset of 16-byte chunk c of key row j in a staged tile of HD / 8
-// chunks a row: chunks are XOR-swizzled by row so that the eight rows one
-// ldmatrix phase reads at the same chunk fall on distinct banks
+// byte offset of 16-byte chunk c of key row j in a staged tile of
+// row_chunks(HD) chunk slots a row: chunks are XOR-swizzled by row so that
+// the eight rows one ldmatrix phase reads at the same chunk fall on
+// distinct banks
 template <int HD>
 __device__ __forceinline__ uint32_t chunk_at(int j, int c) {
-  constexpr int CH = HD / 8;
+  constexpr int CH = row_chunks(HD);
   if constexpr (CH >= 8) {
     return static_cast<uint32_t>(j * CH + (c ^ (j & 7))) * 16u;
   } else {
@@ -165,18 +194,19 @@ __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
 }
 
 // stage key rows [t0, t0 + BKV) of one head into `dst`; rows at or beyond
-// `t_end` are zero-filled and not read
+// `t_end`, and the chunks at or beyond `hd_chunks` (hd / 8), are
+// zero-filled and not read
 template <int HD>
 __device__ __forceinline__ void stage_tile(const __nv_bfloat16* base,
                                            size_t stride, int t0, int t_end,
-                                           uint32_t dst) {
+                                           int hd_chunks, uint32_t dst) {
   constexpr int CH = HD / 8;
   static_assert(BKV * CH % THREADS == 0, "whole chunks per thread");
 #pragma unroll
   for (int i = 0; i < BKV * CH / THREADS; ++i) {
     const int e = threadIdx.x + i * THREADS;
     const int j = e / CH, c = e % CH, kp = t0 + j;
-    const bool in = kp < t_end;
+    const bool in = kp < t_end && c < hd_chunks;
     const __nv_bfloat16* src = base + (in ? kp : 0) * stride + c * 8;
     cp_async16(dst + chunk_at<HD>(j, c), src, in);
   }
@@ -228,7 +258,10 @@ __device__ __forceinline__ void pv_tile(const float (&p)[NT][4], uint32_t vs,
   }
 }
 
-// where the key loop stands: chunk [c0, c_end), pass 1 or 2, tile at t0
+// where the key loop stands: chunk [c0, c_end), pass 1 or 2, tile at t0.
+// A windowed block's first chunk starts at its first tile in the window
+// (the chunk's keys before it are masked for every row of the block, so
+// they would not move its max); c_end is the chunk's real end, or n_keys.
 struct Cursor {
   int c0, c_end, t0;
   bool second;
@@ -248,15 +281,24 @@ __device__ __forceinline__ void advance(Cursor& c, int n_keys, int chunk) {
   c.t0 = c.c0;
 }
 
-template <int HD>
+// Two instantiations per padded width HD up to 128: GENERAL = false for
+// hd == HD and no window, where the width is a constant and the window's
+// tests vanish (the dense family's serves, which a runtime width and
+// window slowed by ~15% at S = 1024); GENERAL = true for a padded hd
+// (hd_arg < HD) or a window, and for every launch at HD > 128
+template <int HD, bool GENERAL>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int B, int Sq,
-                          int Skv, int H, int K, int q_offset, int kv_len,
-                          int causal, int chunk, int n_tiles, float scale) {
-  constexpr int TILE_BYTES = BKV * HD * 2;
+                          int Skv, int H, int K, int hd_arg, int q_offset,
+                          int kv_len, int causal, int window, int chunk,
+                          int n_tiles, float scale) {
+  constexpr int TILE_BYTES = BKV * row_chunks(HD) * 16;
+  const int hd = GENERAL ? hd_arg : HD;
+  const bool win = GENERAL && window > 0;
+  const int hd_chunks = hd / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = smem_u32(smem);
 
@@ -280,7 +322,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = r / G, g = r - qi * G;
     active[i] = r < n_rows;
     qpos[i] = q_offset + qi;
-    row_off[i] = ((static_cast<size_t>(b) * Sq + qi) * H + kh * G + g) * HD;
+    row_off[i] = ((static_cast<size_t>(b) * Sq + qi) * H + kh * G + g) * hd;
   }
   // keys the block needs (causal: up to its last query), and the query
   // span of this warp's live rows, for skipping and masking tiles
@@ -290,24 +332,35 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const bool warp_live = w0 < n_rows;
   const int wq_first = q_offset + w0 / G;
   const int wq_last = q_offset + (min(w0 + 15, n_rows - 1)) / G;
+  // with a window: the first key any row of the block sees, and the first
+  // key any row of the warp sees
+  const int block_lo =
+      win ? max(0, q_offset + tile * ROWS / G - window + 1) : 0;
+  const int warp_lo = win ? wq_first - window + 1 : 0;
 
+  // Q's fragments, zero in the padded columns hd..HD
   uint32_t qa[HD / 16][4];
   {
     const int c = (lane & 3) * 2;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = active[0] ? load_u32(q + row_off[0] + 16 * kk + c) : 0u;
-      qa[kk][1] = active[1] ? load_u32(q + row_off[1] + 16 * kk + c) : 0u;
-      qa[kk][2] = active[0] ? load_u32(q + row_off[0] + 16 * kk + c + 8) : 0u;
-      qa[kk][3] = active[1] ? load_u32(q + row_off[1] + 16 * kk + c + 8) : 0u;
+      const bool lo = 16 * kk < hd, hi8 = 16 * kk + 8 < hd;
+      qa[kk][0] = active[0] && lo ? load_u32(q + row_off[0] + 16 * kk + c)
+                                  : 0u;
+      qa[kk][1] = active[1] && lo ? load_u32(q + row_off[1] + 16 * kk + c)
+                                  : 0u;
+      qa[kk][2] = active[0] && hi8
+                      ? load_u32(q + row_off[0] + 16 * kk + c + 8) : 0u;
+      qa[kk][3] = active[1] && hi8
+                      ? load_u32(q + row_off[1] + 16 * kk + c + 8) : 0u;
     }
   }
 
-  const size_t kv_stride = static_cast<size_t>(K) * HD;
+  const size_t kv_stride = static_cast<size_t>(K) * hd;
   const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Skv * kv_stride
-                            + kh * HD;
+                            + kh * hd;
   const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Skv * kv_stride
-                            + kh * HD;
+                            + kh * hd;
 
   float acc[HD / 8][4];
 #pragma unroll
@@ -319,9 +372,13 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
   float raw_max[2] = {-INFINITY, -INFINITY};
 
-  Cursor cur{0, min(chunk, n_keys), 0, false};
+  // the chunk that holds block_lo, from its tile that holds block_lo
+  const int c_first = block_lo / chunk * chunk;
+  const int t_first = c_first + (block_lo - c_first) / BKV * BKV;
+  Cursor cur{t_first, c_first + min(chunk, n_keys - c_first), t_first,
+             false};
   // stage 0 <- the first tile (pass 1 reads K only)
-  stage_tile<HD>(kb, kv_stride, cur.t0, cur.c_end, sbase);
+  stage_tile<HD>(kb, kv_stride, cur.t0, cur.c_end, hd_chunks, sbase);
   cp_async_commit();
   int stage = 0;
   while (cur.c0 < n_keys) {
@@ -329,22 +386,26 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     advance(nxt, n_keys, chunk);
     if (nxt.c0 < n_keys) {
       const uint32_t dst = sbase + (stage ^ 1) * 2 * TILE_BYTES;
-      stage_tile<HD>(kb, kv_stride, nxt.t0, nxt.c_end, dst);
+      stage_tile<HD>(kb, kv_stride, nxt.t0, nxt.c_end, hd_chunks, dst);
       if (nxt.second)
-        stage_tile<HD>(vb, kv_stride, nxt.t0, nxt.c_end, dst + TILE_BYTES);
+        stage_tile<HD>(vb, kv_stride, nxt.t0, nxt.c_end, hd_chunks,
+                       dst + TILE_BYTES);
     }
     cp_async_commit();
     cp_async_wait_one();     // this tile's copies are done (this thread's)
     __syncthreads();         // ... and every thread's
 
     const int t0 = cur.t0;
-    // keys at or beyond hi belong to a later chunk or lie past kv_len
-    const int hi = cur.c0 + min(chunk, kv_len - cur.c0);
-    if (warp_live && !(causal && t0 > wq_last)) {
+    // keys at or beyond hi belong to a later chunk, lie past kv_len, or
+    // (causal) come after every query of the block
+    const int hi = cur.c_end;
+    if (warp_live && !(causal && t0 > wq_last)
+        && (!win || t0 + BKV > warp_lo)) {
       const uint32_t ks = sbase + stage * 2 * TILE_BYTES;
       float s[NT][4];
       qk_tile<HD>(qa, ks, lane, s);
-      const bool masked = t0 + BKV > hi || (causal && t0 + BKV - 1 > wq_first);
+      const bool masked = t0 + BKV > hi || (causal && t0 + BKV - 1 > wq_first)
+                          || (win && t0 <= wq_last - window);
       // one loop per pass, each with the pass's branch outside it
       if (!cur.second) {
 #pragma unroll
@@ -354,7 +415,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
             bool keep = true;
             if (masked) {
               const int kp = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
-              keep = kp < hi && (!causal || kp <= qpos[e >> 1]);
+              keep = kp < hi && (!causal || kp <= qpos[e >> 1])
+                     && (!win || qpos[e >> 1] - kp < window);
             }
             if (keep) raw_max[e >> 1] = fmaxf(raw_max[e >> 1], s[n][e]);
           }
@@ -367,7 +429,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
             float x = s[n][e] * scale;
             if (masked) {
               const int kp = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
-              const bool keep = kp < hi && (!causal || kp <= qpos[e >> 1]);
+              const bool keep = kp < hi && (!causal || kp <= qpos[e >> 1])
+                                && (!win || qpos[e >> 1] - kp < window);
               x = keep ? x : NEG_INF;
             }
             const float p = expf(x - m[e >> 1]);
@@ -415,6 +478,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int c = (lane & 3) * 2;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
+    if (n * 8 >= hd) break;        // padded columns
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (!active[i]) continue;
@@ -425,67 +489,85 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch_hd(int B, int Sq, int Skv, int H, int K, int q_offset, int kv_len,
-              int causal, int chunk, const void* q, const void* k,
-              const void* v, void* o, cudaStream_t stream) {
-  constexpr int SMEM = 2 * 2 * BKV * HD * 2;   // two stages of K and V
-  if constexpr (SMEM > 48 * 1024) {   // hd = 128: 64 KB
+int launch_hd(int B, int Sq, int Skv, int H, int K, int hd, int q_offset,
+              int kv_len, int causal, int window, int chunk, const void* q,
+              const void* k, const void* v, void* o, cudaStream_t stream) {
+  // two stages of K and V
+  constexpr int SMEM = 2 * 2 * BKV * row_chunks(HD) * 16;
+  constexpr bool FAST = HD <= 128;    // has a GENERAL = false instance
+  const bool general = !FAST || hd != HD || window > 0;
+  auto kernel = flash_attention_tc_kernel<HD, true>;
+  if constexpr (FAST) {
+    if (!general) kernel = flash_attention_tc_kernel<HD, false>;
+  }
+  if constexpr (SMEM > 48 * 1024) {   // HD >= 80: 64 to 128 KB
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int G = H / K;
   const int n_tiles = (Sq * G + ROWS - 1) / ROWS;
   // 1/sqrt(hd) rounded once to float32, as the reference's float64 scale
   const float scale =
-      static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  flash_attention_tc_kernel<HD><<<n_tiles * B * K, THREADS, SMEM, stream>>>(
+      static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  kernel<<<n_tiles * B * K, THREADS, SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      B, Sq, Skv, H, K, q_offset, kv_len, causal, chunk, n_tiles, scale);
+      B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, window, chunk, n_tiles,
+      scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for the padded width HDP = hd rounded up to 16
+template <int HD>
+int launch_padded(int hdp, int B, int Sq, int Skv, int H, int K, int hd,
+                  int q_offset, int kv_len, int causal, int window, int chunk,
+                  const void* q, const void* k, const void* v, void* o,
+                  cudaStream_t stream) {
+  if (hdp == HD)
+    return launch_hd<HD>(B, Sq, Skv, H, K, hd, q_offset, kv_len, causal,
+                         window, chunk, q, k, v, o, stream);
+  if constexpr (HD < MAX_HD)
+    return launch_padded<HD + 16>(hdp, B, Sq, Skv, H, K, hd, q_offset,
+                                  kv_len, causal, window, chunk, q, k, v, o,
+                                  stream);
+  return ERR_HEAD_DIM;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o bfloat16, contiguous, 16-byte aligned. chunk: keys per max
-// refresh (>= 1; the model's chunk_kv).
+// q, k, v, o bfloat16, contiguous, 16-byte aligned. window: 0 for none,
+// else keys at or beyond window positions before the query are masked.
+// chunk: keys per max refresh (>= 1; the model's chunk_kv).
 // Returns 0, a negative argument error, or the cudaError_t of the launch.
 int flash_attention_tc_launch(int B, int Sq, int Skv, int H, int K, int hd,
                               int q_offset, int kv_len, int causal,
-                              int chunk, const void* q, const void* k,
-                              const void* v, void* o, void* stream) {
+                              int window, int chunk, const void* q,
+                              const void* k, const void* v, void* o,
+                              void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || K < 1 || H < K || q_offset < 0 ||
-      chunk < 1)
+      chunk < 1 || window < 0)
     return ERR_SHAPE;
   if (H % K != 0) return ERR_GROUP;
   if (kv_len < 1 || kv_len > Skv) return ERR_KV_LEN;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return ERR_ALIGN;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_hd<16>(B, Sq, Skv, H, K, q_offset, kv_len, causal,
-                                  chunk, q, k, v, o, st);
-    case 32: return launch_hd<32>(B, Sq, Skv, H, K, q_offset, kv_len, causal,
-                                  chunk, q, k, v, o, st);
-    case 64: return launch_hd<64>(B, Sq, Skv, H, K, q_offset, kv_len, causal,
-                                  chunk, q, k, v, o, st);
-    case 128: return launch_hd<128>(B, Sq, Skv, H, K, q_offset, kv_len,
-                                    causal, chunk, q, k, v, o, st);
-    default: return ERR_HEAD_DIM;
-  }
+  if (hd < 8 || hd > MAX_HD || hd % 8 != 0) return ERR_HEAD_DIM;
+  return launch_padded<16>((hd + 15) / 16 * 16, B, Sq, Skv, H, K, hd,
+                           q_offset, kv_len, causal, window, chunk, q, k, v,
+                           o, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_tc_error(int code) {
   switch (code) {
     case ERR_SHAPE:
-      return "need B, Sq, Skv, K, chunk >= 1, H >= K and q_offset >= 0";
-    case ERR_HEAD_DIM: return "head_dim must be 16, 32, 64 or 128";
+      return "need B, Sq, Skv, K, chunk >= 1, H >= K, q_offset >= 0 and "
+             "window >= 0";
+    case ERR_HEAD_DIM: return "head_dim must be a multiple of 8 in 8..256";
     case ERR_GROUP: return "H must be a multiple of K";
     case ERR_KV_LEN: return "kv_len must lie in 1..Skv";
     case ERR_ALIGN: return "q, k, v and out must be 16-byte aligned";

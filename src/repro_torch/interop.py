@@ -81,15 +81,18 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
 
     tree: the reference's parameter tree as numpy
     (`jax.tree.map(np.asarray, params)`): "embed", "final_norm",
-    ["unembed"], and "blocks" with every leaf stacked over a leading layer
-    axis. Each block's slice goes to `blocks[i]` under the same names, in
-    `cfg`'s dtype on `device`. The head layouts are kept as they are, so
-    query head h stays kv head h // G, group h % G."""
-    from repro_torch.models.common import dtype_of
+    ["unembed"], and the layer stack, every leaf stacked over a leading
+    layer axis: "blocks" (dense and moe; a moe block holds "moe" {router,
+    w1, w3, w2} and, for arctic, "dense_mlp"), or "mamba" (hybrid), whose
+    shared block "shared_attn" is not stacked. Layer i's slice goes to
+    `blocks[i]` (or `mamba[i]`) under the same names, each weight in the
+    dtype of the port's parameter (the working dtype, but float32 for the
+    router and the Mamba2 A_log, D and dt_bias, as in the reference) on
+    `device`. The head layouts are kept as they are, so query head h stays
+    kv head h // G, group h % G."""
     from repro_torch.models.model import Model
 
     model = Model(cfg, device="meta").to_empty(device=device)
-    dt = dtype_of(cfg)
 
     def flat(d, prefix=""):
         for k, v in d.items():
@@ -98,15 +101,18 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
             else:
                 yield f"{prefix}{k}", np.asarray(v)
 
+    stacked = ("blocks", "mamba")
     values = {}
-    for name, a in flat({k: v for k, v in tree.items() if k != "blocks"}):
+    for name, a in flat({k: v for k, v in tree.items()
+                         if k not in stacked}):
         values[name] = a
-    for name, a in flat(tree["blocks"]):
-        if a.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks.{name} has {a.shape[0]} layers, the "
-                             f"config {cfg.n_layers}")
-        for layer in range(cfg.n_layers):
-            values[f"blocks.{layer}.{name}"] = a[layer]
+    for stack in stacked:
+        for name, a in flat(tree.get(stack, {})):
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"{stack}.{name} has {a.shape[0]} layers, "
+                                 f"the config {cfg.n_layers}")
+            for layer in range(cfg.n_layers):
+                values[f"{stack}.{layer}.{name}"] = a[layer]
     params = dict(model.named_parameters())
     if set(values) != set(params):
         raise ValueError(f"parameter names differ: only in the tree "
@@ -118,5 +124,5 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: tree {a.shape}, model "
                                  f"{tuple(p.shape)}")
-            p.copy_(torch.tensor(np.asarray(a, np.float32)).to(dt))
+            p.copy_(torch.tensor(np.asarray(a, np.float32)).to(p.dtype))
     return model

@@ -7,8 +7,13 @@ with float32 scores, running max, row sum and accumulator, so no (Sq, Skv)
 score matrix reaches device memory. p is rounded to V's type before the
 PV product, as the model's blocked flash attention does
 (`repro/models/attention.py:137-141`); at float32 that is the identity.
-Keys at or beyond `kv_len`, and after the query where `causal`, are
-masked to -1e30; nothing is padded.
+Keys at or beyond `kv_len`, after the query where `causal`, and `window`
+or more positions before it where `window` > 0, are masked to -1e30, the
+mask of the model's flash attention (`repro/models/attention.py:144-147`;
+the Pallas kernel itself has no window). Both kernels take any head_dim
+that is a multiple of 8 from 8 to 256: they pad it with zeros to a
+multiple of 16 inside the launch, which changes no sum; nothing else is
+padded.
 
 Which kernel serves which dtype (`route` decides, from q's dtype):
 - bfloat16: `csrc/flash_attention_tc.cu`, on the tensor cores (mma.sync
@@ -44,7 +49,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)    # both sources' launch switches
+MAX_HEAD_DIM = 256               # both sources' widest instantiation
 ALIGN = 16                       # bytes; both kernels' cp.async rows
 F32_KEY_TILE = 64                # keys per max refresh of the f32 kernel
 
@@ -54,12 +59,12 @@ _INT = ctypes.c_int
 
 def _lib(name: str):
     """The loaded library of `csrc/<name>.cu` with its C signatures set:
-    `<name>_launch(B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, chunk,
-    q, k, v, o, stream)` and `<name>_error(code)`."""
+    `<name>_launch(B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, window,
+    chunk, q, k, v, o, stream)` and `<name>_error(code)`."""
     lib = build.load(name)
     launch = getattr(lib, f"{name}_launch")
     if launch.argtypes is None:
-        launch.argtypes = [_INT] * 10 + [_PTR] * 5
+        launch.argtypes = [_INT] * 11 + [_PTR] * 5
         launch.restype = _INT
         error = getattr(lib, f"{name}_error")
         error.argtypes = [_INT]
@@ -157,13 +162,9 @@ def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
           chunk_kv=1024):
     """The kernel wrapper that serves q's dtype (`flash_attention_tc` for
     bfloat16, `flash_attention_f32` for float32) and its int arguments
-    (B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, chunk), after the
-    checks both kernels need; raises on what neither takes. Does not look
-    at the device, so that it runs on CPU tensors too."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window flash attention on the card is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 13)")
+    (B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, window, chunk), after
+    the checks both kernels need; raises on what neither takes. Does not
+    look at the device, so that it runs on CPU tensors too."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention takes q (B, Sq, H, hd) and k, v "
@@ -172,19 +173,21 @@ def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     kv_len = Skv if kv_len is None else int(kv_len)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernels take a head_dim that is "
+                         f"a multiple of 8 from 8 to {MAX_HEAD_DIM} (16-byte "
+                         f"bf16 rows); got {hd}")
     if H % K:
         raise ValueError(f"flash_attention kernel takes H a multiple of K "
                          f"(whole query heads per kv head); got H={H}, "
                          f"K={K}")
     if not 1 <= kv_len <= Skv or q_offset < 0 or min(B, Sq, Skv) < 1 \
-            or chunk_kv < 1:
+            or chunk_kv < 1 or window < 0:
         raise ValueError(f"flash_attention kernel takes 1 <= kv_len <= Skv, "
-                         f"q_offset >= 0, chunk_kv >= 1 and nonempty inputs; "
-                         f"got kv_len={kv_len}, Skv={Skv}, q_offset="
-                         f"{q_offset}, chunk_kv={chunk_kv}, B={B}, Sq={Sq}")
+                         f"q_offset >= 0, chunk_kv >= 1, window >= 0 and "
+                         f"nonempty inputs; got kv_len={kv_len}, Skv={Skv}, "
+                         f"q_offset={q_offset}, chunk_kv={chunk_kv}, "
+                         f"window={window}, B={B}, Sq={Sq}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes q, k, v of one dtype, "
@@ -199,7 +202,7 @@ def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
                          f"{ALIGN} bytes")
     # one chunk of Skv keys is the same as any longer one, and fits an int
     args = (B, Sq, Skv, H, K, hd, int(q_offset), kv_len, int(bool(causal)),
-            min(int(chunk_kv), Skv))
+            int(window), min(int(chunk_kv), Skv))
     kern = (flash_attention_tc if q.dtype == torch.bfloat16
             else flash_attention_f32)
     return kern, args
@@ -212,8 +215,9 @@ def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
     kernels and the plain version: CPU tensors run `flash_attention_plain`
     (with `window`, `chunk_q` and `chunk_kv`), CUDA tensors launch the
     kernel `route` picks for their dtype, which picks its own tiles and
-    takes no window; the bf16 kernel refreshes the running max once per
-    `chunk_kv` keys, the float32 one once per `F32_KEY_TILE` keys."""
+    skips the key tiles that lie wholly before every query's `window`; the
+    bf16 kernel refreshes the running max once per `chunk_kv` keys, the
+    float32 one once per `F32_KEY_TILE` keys."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, kv_len=kv_len,

@@ -11,8 +11,8 @@ nothing and masks by bounds and by `kv_len`. The kernels pick their own
 tiles, so `bq` shapes only the plain version; the plain version and the
 bf16 kernel refresh the running softmax max once per `bkv` keys, the
 float32 kernel once per key tile (`kernel.F32_KEY_TILE`), which at float32
-moves only rounding. The kernels take no `window` (a CUDA call with one
-raises NotImplementedError).
+moves only rounding. All three take the model's sliding `window` and any
+head_dim that is a multiple of 8 up to 256.
 """
 from __future__ import annotations
 

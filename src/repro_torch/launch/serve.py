@@ -2,12 +2,16 @@
 weights, starts the slot-based continuous-batching engine and serves a
 synthetic request stream. Decode stays on the device by default:
 `--decode-chunk K` runs K decode+sample steps per host sync;
-`--host-loop` takes the per-token reference loop. Runs on the card
-unless `--device cpu` is given.
+`--host-loop` takes the per-token reference loop; `--kv-dtype int8`
+quantizes the KV cache after prefill (dense and moe archs without a
+sliding window). Serves the dense, moe (mixtral-8x7b, arctic-480b) and
+hybrid (zamba2-2.7b) archs. The synthetic prompts are 4-31 tokens, so
+they meet the Mamba2 rule (a prompt longer than 256 tokens must be a
+multiple of 256). Runs on the card unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         [--reduced] [--device cpu] [--slots 4] [--window 1024] \\
-        [--decode-chunk 8] [--host-loop] [--stats]
+        [--decode-chunk 8] [--host-loop] [--kv-dtype int8] [--stats]
 """
 from __future__ import annotations
 
@@ -39,10 +43,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError("checkpoint restore is not ported to "
-                                  "repro_torch yet (ROADMAP Queue 1 item 13)")
-    if args.kv_dtype:
-        raise NotImplementedError("int8 KV caches are not ported to "
-                                  "repro_torch yet (ROADMAP Queue 1 item 13)")
+                                  "repro_torch yet (ROADMAP Queue 1 item "
+                                  "13c)")
 
     import numpy as np
     import torch
@@ -55,6 +57,8 @@ def main(argv=None):
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), name=cfg.name,
                                   dtype="float32")
+    if args.kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
     model = Model(cfg, device=args.device, seed=0)
 
     collector = None

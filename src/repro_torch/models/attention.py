@@ -1,19 +1,24 @@
-"""GQA attention: flash prefill path and KV-cache decode path (port of
-`repro.models.attention`, its non-ring, non-int8 form).
+"""GQA attention: flash prefill path and KV-cache decode path, with the
+sliding-window ring cache and the int8 cache (port of
+`repro.models.attention`).
 
 Prefill attention (`attend_train` -> `flash_attention`) is the one caller
 of the flash-attention kernel: a CUDA tensor launches
 `csrc/flash_attention.cu` through `kernels.flash_attention.ops` (or
 raises), a CPU tensor runs the blocked pure-torch flash attention of the
-reference (`kernels.flash_attention.kernel.flash_attention_plain`).
-Decode attends one new token against the cache in plain torch, as the
-reference does outside any Pallas kernel; it writes the new K/V row into
-the cache in place.
+reference (`kernels.flash_attention.kernel.flash_attention_plain`); a
+sliding window goes into the kernel's mask. Decode attends one new token
+against the cache in plain torch, as the reference does outside any
+Pallas kernel; it writes the new K/V row (and, for an int8 cache, its
+scales) into the cache in place. Under a sliding window the cache is a
+ring of `window` rows indexed by pos % window (`seed_ring_cache` lays out
+a prefill's rows so); an int8 cache holds per-token, per-head symmetric
+int8 values with bf16 scales (`quantize_kv`), folded into the scores and
+the weights as the reference does.
 
 Not on this slice's path: the sequence-parallel flash (`_seqpar_flash`,
 `_want_seqpar`, XLA mesh code) and the encoder cross-attention
-(`cross_*`, the audio family). The int8 cache (`quantize_kv`) and the
-sliding-window ring (`seed_ring_cache`) are deferred.
+(`cross_*`, the audio family).
 """
 from __future__ import annotations
 
@@ -22,16 +27,10 @@ import math
 import torch
 from torch import nn
 
-from repro_torch._deferred import deferred
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import dense_init, dtype_of, param, rope
 
 NEG_INF = -1e30
-
-quantize_kv = deferred("models.attention.quantize_kv",
-                       "Queue 1 item 13 (int8 KV cache)")
-seed_ring_cache = deferred("models.attention.seed_ring_cache",
-                           "Queue 1 item 13 (sliding-window ring cache)")
 
 
 class Attention(nn.Module):
@@ -100,17 +99,60 @@ def attend_train(p, x, positions, cfg):
     return _heads_out(o, p.wo), k, v
 
 
-def decode(p, x, cache_k, cache_v, pos, cfg):
+def quantize_kv(k, axis=-1):
+    """Symmetric int8 per-token-per-head quantization. k: (..., hd) ->
+    (int8 like k, scale (...,) bf16). Rounds half to even, as jnp.round;
+    divides by tensors (a CUDA division by a Python number multiplies by
+    its reciprocal, which can move a scale by an ulp)."""
+    kf = k.float()
+    s = kf.abs().amax(dim=axis) / kf.new_tensor(127.0)
+    s = torch.clamp_min(s, 1e-8)
+    q = torch.clamp(torch.round(kf / s.unsqueeze(axis)), -127, 127)
+    return q.to(torch.int8), s.to(torch.bfloat16)
+
+
+def seed_ring_cache(k, v, window):
+    """Convert full prefill K/V (..., S, K, hd) into a ring cache of
+    `window` rows (..., W, K, hd) laid out so that slot = pos % W, ready
+    for decode at pos = S: the last W positions when S > W."""
+    S = k.shape[-3]
+    W = window
+    ck = k.new_zeros(k.shape[:-3] + (W,) + k.shape[-2:])
+    cv = v.new_zeros(v.shape[:-3] + (W,) + v.shape[-2:])
+    if S <= W:
+        ck[..., :S, :, :] = k
+        cv[..., :S, :, :] = v
+        return ck, cv
+    idx = torch.arange(S - W, S, device=k.device) % W
+    ck[..., idx, :, :] = k[..., S - W:, :, :]
+    cv[..., idx, :, :] = v[..., S - W:, :, :]
+    return ck, cv
+
+
+def decode(p, x, cache_k, cache_v, pos, cfg, *, ring=False, scales=None):
     """x: (B, 1, d); cache_k/v: (B, W, K, hd); pos: (B,) int32 current
-    index. Writes the new K/V rows at min(pos, W - 1) into the caches in
-    place and returns (out (B, 1, d), cache_k, cache_v)."""
+    index. Writes the new K/V rows at slot pos % W (`ring`) or
+    min(pos, W - 1) into the caches in place and returns (out (B, 1, d),
+    cache_k, cache_v[, (ks, vs)]). `scales`: (ks, vs), each (B, W, K)
+    bf16, for int8 caches; the new rows are quantized, and the scales
+    multiply the float32 scores and the softmax weights."""
     B = x.shape[0]
     W = cache_k.shape[1]
     q, k, v = _qkv(p, x, cfg, pos[:, None])
-    slot = torch.clamp_max(pos.long(), W - 1)
+    pos = pos.long()
+    slot = pos % W if ring else torch.clamp_max(pos, W - 1)
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    if scales is not None:
+        ks, vs = scales
+        kq, ksc = quantize_kv(k[:, 0])
+        vq, vsc = quantize_kv(v[:, 0])
+        cache_k[bidx, slot] = kq
+        cache_v[bidx, slot] = vq
+        ks[bidx, slot] = ksc
+        vs[bidx, slot] = vsc
+    else:
+        cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
 
     H, hd = q.shape[2], q.shape[3]
     K = cache_k.shape[2]
@@ -118,9 +160,19 @@ def decode(p, x, cache_k, cache_v, pos, cfg):
     # float32 scores from the working dtype's operands
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
                      cache_k.to(q.dtype).float()) / math.sqrt(hd)
-    valid = torch.arange(W, device=x.device)[None] <= slot[:, None]
+    if scales is not None:
+        s = s * ks.float().permute(0, 2, 1)[:, :, None, :]
+    slots = torch.arange(W, device=x.device)[None]
+    valid = slots <= slot[:, None]
+    if ring:
+        valid = valid | (pos[:, None] >= W)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
+    if scales is not None:
+        w = w * vs.float().permute(0, 2, 1)[:, :, None, :]
     o = torch.einsum("bkgs,bskh->bkgh", w.to(q.dtype),
                      cache_v.to(q.dtype))
-    return _heads_out(o.reshape(B, 1, H, hd), p.wo), cache_k, cache_v
+    o = _heads_out(o.reshape(B, 1, H, hd), p.wo)
+    if scales is not None:
+        return o, cache_k, cache_v, (ks, vs)
+    return o, cache_k, cache_v

@@ -1,10 +1,15 @@
-"""Model facade for the dense decoder family (port of
+"""Model facade for the dense, moe and hybrid families (port of
 `repro.models.model`).
 
 `Model` is an `nn.Module` that holds its weights: the token embedding
-(tied as the unembedding unless `cfg.tie_embeddings` is False), a
-`ModuleList` of dense blocks in place of the reference's stacked
-`lax.scan` parameters, and the final norm. Layers run as a Python loop.
+(tied as the unembedding unless `cfg.tie_embeddings` is False), the final
+norm, and in place of the reference's stacked `lax.scan` parameters
+  dense   `blocks`: a `ModuleList` of dense blocks;
+  moe     `blocks`: a `ModuleList` of MoE blocks (mixtral, arctic);
+  hybrid  `mamba`: a `ModuleList` of `n_layers` Mamba2 layers, and
+          `shared_attn`: ONE dense block applied after every `attn_every`
+          Mamba2 layers, with its own KV cache per application (zamba2).
+Layers run as a Python loop.
 
 API (the reference's, with the parameters held by the module):
   Model(cfg, device=, seed=)                -> seeded truncated-normal init
@@ -15,10 +20,18 @@ API (the reference's, with the parameters held by the module):
   init_cache(B, W)                          -> zeroed cache dict
   param_count(active_only=False)
 
-The cache is {"k", "v"}: (L, B, W, K, hd) tensors that decode updates in
-place. Other families (vlm, moe, hybrid, ssm, audio), the int8 KV cache
-and sliding-window attention raise NotImplementedError naming their
-ROADMAP item, as does training (`loss`).
+The cache is a dict of tensors with the batch on axis 1, which decode
+updates in place:
+  dense, moe  {"k", "v"}: (L, B, W, K, hd); under a sliding window a ring
+              of exactly `sliding_window` rows (slot = pos % W), seeded
+              from the prefill's last W positions; with `kv_dtype="int8"`
+              (and no window) int8 values plus {"ksc", "vsc"}: (L, B, W, K)
+              bf16 scales, quantized after prefill;
+  hybrid      {"conv": (L, B, k-1, cdim), "ssm": (L, B, H, P, N) float32,
+              "k", "v": (L / attn_every, B, W, K, hd)}.
+The ssm (xlstm), audio (whisper) and vlm (internvl2) families raise
+NotImplementedError naming their ROADMAP item, as does training
+(`loss`).
 """
 from __future__ import annotations
 
@@ -27,24 +40,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._deferred import deferred
-from repro_torch.models import transformer as tfm
+from repro_torch.models import attention, ssm, transformer as tfm
 from repro_torch.models.common import dense_init, dtype_of, norm, \
     norm_init, param
 
-_FAMILIES = "Queue 1 item 13 (model families beyond dense)"
+_FAMILIES = "Queue 1 item 13b (the ssm, audio and vlm families)"
+KV_FAMILIES = ("dense", "moe")
 
 
 class Model(nn.Module):
     def __init__(self, cfg, *, device="cuda", seed=0):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in KV_FAMILIES + ("hybrid",):
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported to repro_torch "
                 f"yet (ROADMAP {_FAMILIES})")
-        if cfg.kv_dtype == "int8" or cfg.sliding_window > 0:
-            raise NotImplementedError(
-                "int8 KV caches and sliding-window attention are not ported "
-                "to repro_torch yet (ROADMAP Queue 1 item 13)")
         self.cfg = cfg
         dev = torch.device(device)
         gen = None if dev.type == "meta" else \
@@ -53,8 +63,15 @@ class Model(nn.Module):
         self.embed = param(dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                                       scale=0.02, device=dev))
         self.final_norm = norm_init(cfg, device=dev)
-        self.blocks = nn.ModuleList(tfm.dense_block_init(gen, cfg, device=dev)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.mamba = nn.ModuleList(ssm.init(gen, cfg, device=dev)
+                                       for _ in range(cfg.n_layers))
+            self.shared_attn = tfm.dense_block_init(gen, cfg, device=dev)
+        else:
+            block = tfm.moe_block_init if cfg.family == "moe" \
+                else tfm.dense_block_init
+            self.blocks = nn.ModuleList(block(gen, cfg, device=dev)
+                                        for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.unembed = param(dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), dt, device=dev))
@@ -83,13 +100,38 @@ class Model(nn.Module):
     # caches
     # ------------------------------------------------------------------
     def kv_window(self, seq_len):
+        """The cache's rows: a ring cache is always exactly
+        `sliding_window` long (slot = pos % W and the prefill seeding
+        assume it), else `seq_len`."""
         return self.cfg.sliding_window if self.cfg.sliding_window else seq_len
+
+    def _int8_kv(self):
+        """int8 KV cache: kv_dtype "int8" on a KV family without a ring
+        (ring caches keep the working dtype, as in the reference)."""
+        return (self.cfg.kv_dtype == "int8" and self.cfg.sliding_window == 0
+                and self.cfg.family in KV_FAMILIES)
 
     def init_cache(self, B, W):
         cfg = self.cfg
-        shape = (cfg.n_layers, B, self.kv_window(W), cfg.n_kv_heads, cfg.hd())
-        return {name: torch.zeros(shape, dtype=dtype_of(cfg),
-                                  device=self.device) for name in ("k", "v")}
+        dt = dtype_of(cfg)
+        K, hd, L = cfg.n_kv_heads, cfg.hd(), cfg.n_layers
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                 device=self.device)
+        if cfg.family == "hybrid":
+            di, nh, cdim = ssm.dims(cfg)
+            napp = L // cfg.attn_every
+            return {"conv": zeros((L, B, cfg.conv_kernel - 1, cdim), dt),
+                    "ssm": zeros((L, B, nh, cfg.ssm_headdim, cfg.ssm_state),
+                                 torch.float32),
+                    "k": zeros((napp, B, W, K, hd), dt),
+                    "v": zeros((napp, B, W, K, hd), dt)}
+        W = self.kv_window(W)
+        if self._int8_kv():
+            return {"k": zeros((L, B, W, K, hd), torch.int8),
+                    "v": zeros((L, B, W, K, hd), torch.int8),
+                    "ksc": zeros((L, B, W, K), torch.bfloat16),
+                    "vsc": zeros((L, B, W, K), torch.bfloat16)}
+        return {name: zeros((L, B, W, K, hd), dt) for name in ("k", "v")}
 
     # ------------------------------------------------------------------
     # prefill: full forward that also builds the cache; returns logits of
@@ -102,23 +144,54 @@ class Model(nn.Module):
         h = self._embed(tokens)
         S = h.shape[1]
         positions = torch.arange(S, device=h.device).expand(B, S)
-        ks, vs = [], []
-        for blk in self.blocks:
-            h, (k, v) = tfm.dense_block_prefill(blk, h, positions, cfg)
-            ks.append(k)
-            vs.append(v)
-        W_eff = self.kv_window(W or S)
-        if W_eff < S:
-            raise ValueError(f"cache window {W_eff} is shorter than the "
-                             f"prompt ({S} tokens)")
+        ring = cfg.sliding_window > 0
 
         def pad_kv(rows):
-            # L x (B, S, K, hd) -> (L, B, W_eff, K, hd), zeros after S
+            # n x (B, S, K, hd) -> (n, B, W_eff, K, hd), zeros after S
+            W_eff = self.kv_window(W or S)
+            if W_eff < S:
+                raise ValueError(f"cache window {W_eff} is shorter than "
+                                 f"the prompt ({S} tokens)")
             out = rows[0].new_zeros((len(rows), B, W_eff) + rows[0].shape[2:])
             out[:, :, :S] = torch.stack(rows)
             return out
 
-        cache = {"k": pad_kv(ks), "v": pad_kv(vs)}
+        ks, vs = [], []
+        if cfg.family == "hybrid":
+            per = cfg.attn_every
+            convs, states = [], []
+            for layer, mp in enumerate(self.mamba):
+                y, cs, st = ssm.apply(mp, h, cfg, return_state=True)
+                h = h + y
+                convs.append(cs)
+                states.append(st)
+                if (layer + 1) % per == 0:
+                    h, (k, v) = tfm.dense_block_prefill(
+                        self.shared_attn, h, positions, cfg)
+                    ks.append(k)
+                    vs.append(v)
+            cache = {"conv": torch.stack(convs), "ssm": torch.stack(states),
+                     "k": pad_kv(ks), "v": pad_kv(vs)}
+        else:
+            for blk in self.blocks:
+                if cfg.family == "moe":
+                    h, (k, v), _ = tfm.moe_block_prefill(blk, h, positions,
+                                                         cfg)
+                else:
+                    h, (k, v) = tfm.dense_block_prefill(blk, h, positions,
+                                                        cfg)
+                ks.append(k)
+                vs.append(v)
+            if ring:
+                ck, cv = attention.seed_ring_cache(
+                    torch.stack(ks), torch.stack(vs), cfg.sliding_window)
+                cache = {"k": ck, "v": cv}
+            elif self._int8_kv():
+                kq, ksc = attention.quantize_kv(pad_kv(ks))
+                vq, vsc = attention.quantize_kv(pad_kv(vs))
+                cache = {"k": kq, "v": vq, "ksc": ksc, "vsc": vsc}
+            else:
+                cache = {"k": pad_kv(ks), "v": pad_kv(vs)}
         h = norm(h, self.final_norm, cfg)
         logits = self._logits_last(h[:, -1])
         pos = torch.full((B,), S, dtype=torch.int32, device=h.device)
@@ -132,9 +205,30 @@ class Model(nn.Module):
         the cache updated in place."""
         cfg = self.cfg
         x = self._embed(token)
-        for layer, blk in enumerate(self.blocks):
-            x, _, _ = tfm.dense_block_decode(blk, x, cache["k"][layer],
-                                             cache["v"][layer], pos, cfg)
+        if cfg.family == "hybrid":
+            per = cfg.attn_every
+            for layer, mp in enumerate(self.mamba):
+                y, cs, st = ssm.decode_step(mp, x, cache["conv"][layer],
+                                            cache["ssm"][layer], cfg)
+                x = x + y
+                cache["conv"][layer] = cs
+                cache["ssm"][layer] = st
+                if (layer + 1) % per == 0:
+                    g = layer // per
+                    x, _, _ = tfm.dense_block_decode(
+                        self.shared_attn, x, cache["k"][g], cache["v"][g],
+                        pos, cfg)
+        else:
+            ring = cfg.sliding_window > 0
+            dec = tfm.moe_block_decode if cfg.family == "moe" \
+                else tfm.dense_block_decode
+            int8 = self._int8_kv()
+            for layer, blk in enumerate(self.blocks):
+                scales = ((cache["ksc"][layer], cache["vsc"][layer])
+                          if int8 else None)
+                out = dec(blk, x, cache["k"][layer], cache["v"][layer], pos,
+                          cfg, ring=ring, scales=scales)
+                x = out[0]
         h = norm(x, self.final_norm, cfg)
         return self._logits_last(h[:, -1]), cache
 
@@ -178,5 +272,11 @@ class Model(nn.Module):
     # counting
     # ------------------------------------------------------------------
     def param_count(self, active_only=False) -> int:
-        """Number of weights (the dense family has no inactive experts)."""
-        return sum(p.numel() for p in self.parameters())
+        """Number of weights; with `active_only`, the experts count at
+        top_k / n_experts of their weights (the reference's formula)."""
+        total = sum(p.numel() for p in self.parameters())
+        cfg = self.cfg
+        if active_only and cfg.n_experts:
+            expert = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff
+            total = total - expert + expert * cfg.top_k // cfg.n_experts
+        return total

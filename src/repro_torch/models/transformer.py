@@ -1,8 +1,11 @@
-"""Transformer blocks: the dense decoder block, attention plus gated MLP
-(port of `repro.models.transformer`, dense part). Residual wiring and
-norms live here, attention math in attention.py.
+"""Transformer blocks: the dense decoder block (attention plus gated MLP)
+and the MoE decoder block (attention plus the MoE FFN, with arctic's
+parallel dense residual MLP) (port of `repro.models.transformer`).
+Residual wiring and norms live here, attention math in attention.py, MoE
+math in moe.py.
 
-The MoE, encoder and cross-attention decoder blocks are deferred.
+The encoder and cross-attention decoder blocks (the audio family) are
+deferred.
 """
 from __future__ import annotations
 
@@ -11,12 +14,11 @@ import math
 from torch import nn
 
 from repro_torch._deferred import deferred
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.common import act_fn, dense_init, dtype_of, norm, \
     norm_init, param
 
-_LATER = "Queue 1 item 13 (model families beyond dense)"
-moe_block_init = deferred("models.transformer.moe_block_init", _LATER)
+_LATER = "Queue 1 item 13b (the audio family)"
 enc_block_init = deferred("models.transformer.enc_block_init", _LATER)
 xdec_block_init = deferred("models.transformer.xdec_block_init", _LATER)
 
@@ -26,11 +28,11 @@ xdec_block_init = deferred("models.transformer.xdec_block_init", _LATER)
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """w1, w3 (d, f) and w2 (f, d)."""
+    """w1, w3 (d, f) and w2 (f, d); f is `d_ff`, else cfg.d_ff."""
 
-    def __init__(self, cfg, gen=None, device="cuda"):
+    def __init__(self, cfg, gen=None, device="cuda", d_ff=None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         dt = dtype_of(cfg)
         self.w1 = param(dense_init(gen, (d, f), dt, device=device))
         self.w3 = param(dense_init(gen, (d, f), dt, device=device))
@@ -38,8 +40,8 @@ class MLP(nn.Module):
                                    device=device))
 
 
-def mlp_init(gen, cfg, device="cuda") -> MLP:
-    return MLP(cfg, gen, device=device)
+def mlp_init(gen, cfg, device="cuda", d_ff=None) -> MLP:
+    return MLP(cfg, gen, device=device, d_ff=d_ff)
 
 
 def mlp_apply(p, x, cfg):
@@ -81,8 +83,69 @@ def dense_block_prefill(p, x, positions, cfg):
     return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg), (k, v)
 
 
-def dense_block_decode(p, x, ck, cv, pos, cfg):
-    a, ck, cv = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos,
-                                 cfg)
+def dense_block_decode(p, x, ck, cv, pos, cfg, ring=False, scales=None):
+    out = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos, cfg,
+                           ring=ring, scales=scales)
+    a, ck, cv = out[:3]
     x = x + a
-    return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg), ck, cv
+    y = x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg)
+    if scales is not None:
+        return y, ck, cv, out[3]
+    return y, ck, cv
+
+
+# ---------------------------------------------------------------------------
+# MoE decoder block (mixtral / arctic). arctic adds a parallel dense
+# residual MLP beside the MoE FFN.
+# ---------------------------------------------------------------------------
+
+class MoEBlock(nn.Module):
+    """n1, attn, n2, moe, and with `cfg.moe_dense_ff` dense_mlp."""
+
+    def __init__(self, cfg, gen=None, device="cuda"):
+        super().__init__()
+        self.n1 = norm_init(cfg, device=device)
+        self.attn = attention.init(gen, cfg, device=device)
+        self.n2 = norm_init(cfg, device=device)
+        self.moe = moe.init(gen, cfg, device=device)
+        if cfg.moe_dense_ff:
+            self.dense_mlp = mlp_init(gen, cfg, device=device,
+                                      d_ff=cfg.moe_dense_ff)
+
+
+def moe_block_init(gen, cfg, device="cuda") -> MoEBlock:
+    return MoEBlock(cfg, gen, device=device)
+
+
+def _moe_ffn(p, h, cfg):
+    y, aux = moe.apply(p.moe, h, cfg)
+    if cfg.moe_dense_ff:
+        y = y + mlp_apply(p.dense_mlp, h, cfg)
+    return y, aux
+
+
+def moe_block_apply(p, x, positions, cfg):
+    a, _, _ = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
+                                     cfg)
+    x = x + a
+    y, aux = _moe_ffn(p, norm(x, p.n2, cfg), cfg)
+    return x + y, aux
+
+
+def moe_block_prefill(p, x, positions, cfg):
+    a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
+                                     cfg)
+    x = x + a
+    y, aux = _moe_ffn(p, norm(x, p.n2, cfg), cfg)
+    return x + y, (k, v), aux
+
+
+def moe_block_decode(p, x, ck, cv, pos, cfg, ring=False, scales=None):
+    out = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos, cfg,
+                           ring=ring, scales=scales)
+    a, ck, cv = out[:3]
+    x = x + a
+    y, _ = _moe_ffn(p, norm(x, p.n2, cfg), cfg)
+    if scales is not None:
+        return x + y, ck, cv, out[3]
+    return x + y, ck, cv

@@ -61,6 +61,9 @@ SMALL = dict(cells=("gc2t_nn", "gc2t_osos"), word_sizes=(16, 32),
 SCALES = (0.75, 1.0, 1.2)
 # the README's co-design quickstart query (default 96-point lattice)
 README_ARCHS = ("qwen2-0.5b", "llama3.2-1b")
+# the moe and hybrid archs the model stack now builds (both subquadratic,
+# so both also run long_500k)
+MOE_HYBRID_ARCHS = ("mixtral-8x7b", "zamba2-2.7b")
 README_SCALES = (0.7, 0.85, 1.0, 1.15)
 
 
@@ -145,7 +148,7 @@ def test_roofline_matches_reference():
                               rel=RTOL_ANALYTIC)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_HYBRID_ARCHS)
 def test_profiles_match_reference(arch):
     """Every shape of the grid: the parameter count (on the meta device,
     so nothing is allocated) equals the reference's, and every Profile
@@ -213,11 +216,43 @@ def test_profile_demands_units():
         p.l1_read_hz = 0.0
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b",
-                                  "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_nondense_arch_raises_naming_item_13(arch):
     with pytest.raises(NotImplementedError, match="item 13"):
         profile_arch(arch, "decode_32k")
+
+
+@pytest.mark.parametrize("arch,active,total", [
+    ("mixtral-8x7b", 12_879_925_248, 46_702_792_704),
+    ("zamba2-2.7b", 2_422_532_000, 2_422_532_000)])
+def test_moe_and_hybrid_profiles(arch, active, total):
+    """The active parameter count on the meta device is the reference's
+    (`ModelConfig.active_param_count()`), and both archs profile at
+    decode_32k and long_500k, equal to the reference's profiles."""
+    cfg = get_config(arch)
+    assert cfg.subquadratic
+    assert rl.active_params(cfg) == active == \
+        ref_get_config(arch).active_param_count()
+    assert cfg.param_count() == total
+    for shape in ("decode_32k", "long_500k"):
+        assert_json(dataclasses.asdict(profile_arch(arch, shape)),
+                    dataclasses.asdict(ref_prof.profile_arch(arch, shape)))
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_codesign_query_over_moe_and_hybrid(shape):
+    """`CoDesignQuery` over mixtral-8x7b and zamba2-2.7b through the
+    port's Session against the reference's, on a small lattice."""
+    s = api.Session(device="cpu")
+    got = s.run(api.CoDesignQuery(
+        tuple(profile_arch(a, shape) for a in MOE_HYBRID_ARCHS),
+        api.SweepQuery(**SMALL), vdd_scales=SCALES))
+    wants = ref_runs(lambda: ref_api.Session().run(ref_api.CoDesignQuery(
+        ref_profiles(MOE_HYBRID_ARCHS, shape), ref_api.SweepQuery(**SMALL),
+        vdd_scales=SCALES)))
+    assert_report(got, wants)
+    assert s.executor.stats["cube_calls"] == 1
+    assert len(got.plans) == 2
 
 
 def test_plan_memory_matches_reference():

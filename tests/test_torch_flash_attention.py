@@ -127,6 +127,15 @@ MODEL_CASES = [
     (2, 32, 96, 4, 4, 16, 64, 80, 0, 16, 32),       # kv_len < Skv
     (1, 24, 64, 7, 1, 32, 0, 30, 0, 8, 16),         # G = 7, kv_len < Skv
     (1, 64, 64, 4, 2, 16, 0, None, 20, 16, 16),     # sliding window
+    # the widths the kernels now take: zamba2's hd = 80, mixtral's
+    # window (a prompt longer than it), and hd = 8, 24, 72, 256 with a
+    # window, q_offset > 0 and kv_len < Skv
+    (2, 40, 40, 4, 4, 80, 0, None, 0, 16, 16),
+    (1, 72, 72, 8, 2, 16, 0, None, 32, 512, 1024),
+    (1, 24, 64, 4, 2, 8, 32, 60, 40, 8, 16),
+    (1, 30, 48, 4, 4, 24, 12, 44, 16, 16, 32),
+    (2, 20, 40, 4, 2, 72, 16, None, 10, 16, 16),
+    (1, 16, 40, 2, 1, 256, 20, 38, 24, 8, 16),
 ]
 
 
@@ -191,10 +200,22 @@ def test_route_picks_the_kernel_by_dtype(dtype, kern):
     k = torch.zeros((2, 20, 2, 64), dtype=dtype)
     got, args = kernel.route(q, k, k, 8, kv_len=17, chunk_kv=16)
     assert got is getattr(kernel, kern)
-    assert args == (2, 12, 20, 8, 2, 64, 8, 17, 1, 16)
+    assert args == (2, 12, 20, 8, 2, 64, 8, 17, 1, 0, 16)
     # kv_len defaults to Skv; a chunk longer than Skv is one chunk of Skv
     _, args = kernel.route(q, k, k, causal=False)
-    assert args == (2, 12, 20, 8, 2, 64, 0, 20, 0, 20)
+    assert args == (2, 12, 20, 8, 2, 64, 0, 20, 0, 0, 20)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [8, 24, 72, 80, 128, 256])
+def test_route_takes_every_head_dim_and_a_window(dtype, hd):
+    """Every head_dim that is a multiple of 8 up to 256 and a sliding
+    window pass the checks on CPU tensors (route does not look at the
+    device), and the window reaches the kernel's arguments."""
+    q = torch.zeros((1, 20, 8, hd), dtype=dtype)
+    k = torch.zeros((1, 24, 2, hd), dtype=dtype)
+    _, args = kernel.route(q, k, k, 4, window=16, kv_len=23)
+    assert args == (1, 20, 24, 8, 2, hd, 4, 23, 1, 16, 24)
 
 
 def _misaligned(dtype, shape):
@@ -207,11 +228,12 @@ def _misaligned(dtype, shape):
 @pytest.mark.parametrize("case,error,match", [
     ("float64", TypeError, "float32 or bfloat16"),
     ("mixed dtypes", TypeError, "one dtype"),
-    ("head_dim 48", ValueError, "head_dim"),
+    ("head_dim 44", ValueError, "head_dim"),
     ("kv_len > Skv", ValueError, "kv_len"),
     ("chunk_kv 0", ValueError, "chunk_kv"),
     ("non-contiguous", ValueError, "contiguous"),
-    ("window", NotImplementedError, "sliding-window"),
+    ("head_dim 264", ValueError, "head_dim"),
+    ("negative window", ValueError, "window"),
     ("H not a multiple of K", ValueError, "heads per kv head"),
     ("misaligned bf16", ValueError, "aligned"),
     ("misaligned float32", ValueError, "aligned"),
@@ -224,16 +246,18 @@ def test_route_rejects_what_the_kernels_do_not_take(case, error, match):
         q, k, v = q.double(), k.double(), k.double()
     elif case == "mixed dtypes":
         q = q.bfloat16()
-    elif case == "head_dim 48":
-        q, k, v = (x[..., :48].contiguous() for x in (q, k, k))
+    elif case == "head_dim 44":
+        q, k, v = (x[..., :44].contiguous() for x in (q, k, k))
+    elif case == "head_dim 264":
+        q, k, v = (torch.zeros(x.shape[:3] + (264,)) for x in (q, k, k))
     elif case == "kv_len > Skv":
         kw = {"kv_len": 9}
     elif case == "chunk_kv 0":
         kw = {"chunk_kv": 0}
     elif case == "non-contiguous":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
-    elif case == "window":
-        kw = {"window": 4}
+    elif case == "negative window":
+        kw = {"window": -1}
     elif case == "H not a multiple of K":
         q = torch.zeros((1, 8, 5, 64))
     elif case == "misaligned bf16":

@@ -40,7 +40,8 @@ def test_port_has_modules():
                  "kernels/flash_attention/ref.py", "configs/base.py",
                  "configs/llama3_2_1b.py", "models/common.py",
                  "models/attention.py", "models/transformer.py",
-                 "models/model.py", "serving/engine.py",
+                 "models/model.py", "models/moe.py", "models/ssm.py",
+                 "serving/engine.py",
                  "serving/sampling.py", "runtime/telemetry.py",
                  "launch/serve.py", "core/dse.py", "core/dse_batch.py",
                  "core/dse_grad.py", "core/multibank.py",

@@ -471,7 +471,7 @@ def test_flash_attention_f32_is_deterministic(cuda, shape):
 
 def test_flash_attention_f32_does_not_spill(cuda):
     """ptxas reports no spill bytes for any instantiation of the float32
-    kernel (hd = 16, 32, 64 and 128)."""
+    kernel (every padded head_dim from 16 to 256, both tilings)."""
     from repro_torch.kernels import build
     log = build.build_all(["flash_attention"])["flash_attention"] \
         .with_suffix(".log")
@@ -488,8 +488,8 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         flash_attention_fwd(q.double(), k.double(), k.double())
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_fwd(q[..., :48].contiguous(),
-                            k[..., :48].contiguous(), k[..., :48].contiguous())
+        flash_attention_fwd(q[..., :44].contiguous(),
+                            k[..., :44].contiguous(), k[..., :44].contiguous())
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention_fwd(q, k, k, kv_len=9)
     with pytest.raises(ValueError, match="chunk_kv"):
@@ -497,8 +497,88 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, k)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        flash_attention_fwd(q, k, k, window=4)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_fwd(q, k, k, window=-1)
+
+
+# (B, Sq, Skv, H, K, hd, q_offset, kv_len, window): zamba2's hd = 80 at a
+# serve's prefill shape; mixtral's windowed prefill (hd = 128, window
+# 4096, a prompt longer than it); hd = 8, 24, 72 and 256 with and without
+# a window, with q_offset > 0 and kv_len < Skv (every row keeps a key in
+# its window)
+FLASH_NEW_SHAPES = [(2, 256, 256, 32, 32, 80, 0, None, 0),
+                    (2, 5120, 5120, 32, 8, 128, 0, None, 4096),
+                    (2, 300, 300, 8, 2, 8, 0, None, 0),
+                    (2, 300, 300, 8, 2, 8, 0, None, 100),
+                    (1, 200, 240, 8, 2, 24, 40, 230, 0),
+                    (1, 200, 240, 8, 2, 24, 40, 230, 64),
+                    (2, 150, 180, 4, 4, 72, 20, 170, 33),
+                    (1, 256, 300, 4, 2, 256, 30, 290, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_NEW_SHAPES, ids=str)
+def test_flash_attention_window_and_head_dims_match_plain(cuda, shape,
+                                                          dtype):
+    """Both kernels at head_dims padded inside the launch and with a
+    sliding window, against the plain version, at the model's chunk_kv
+    and at one that ends inside a key tile."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    B, Sq, Skv, H, K, hd, off, kv_len, window = shape
+    rng = np.random.default_rng(Sq + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                               device=cuda)
+               for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    for chunk_kv in ((1024,) if Sq > 1024 else (1024, 40)):
+        before = _flash_counts()
+        got = flash_attention_fwd(q, k, v, off, kv_len=kv_len, window=window,
+                                  chunk_kv=chunk_kv)
+        assert _one_launch_of(dtype, before)
+        want = flash_attention_plain(q, k, v, q_offset=off, kv_len=kv_len,
+                                     window=window, chunk_kv=chunk_kv)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert float((got.float() - want.float()).abs().max()) <= \
+            FLASH_ATOL[dtype]
+
+
+def test_moe_and_hybrid_serving_on_the_card(cuda):
+    """Reduced mixtral (prompts longer than its 32-token window) and
+    zamba2 at float32 on the card: every prefill attention launches the
+    float32 kernel, and the greedy streams of both modes equal the CPU
+    run with the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_f32
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, lens in (("mixtral-8x7b", (40, 40, 36)),
+                       ("zamba2-2.7b", (12, 20, 12))):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        cpu = Model(cfg, device="cpu", seed=0)
+        card = Model(cfg, device="cpu", seed=0).to(cuda)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        streams = []
+        for model, mode in ((card, "device"), (card, "host"),
+                            (cpu, "device")):
+            eng = ServeEngine(cfg, model, n_slots=2, window=64, mode=mode,
+                              decode_chunk=4)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+            before = flash_attention_f32.launches
+            done, _ = eng.run()
+            per = (cfg.n_layers // cfg.attn_every if cfg.attn_every
+                   else cfg.n_layers)
+            assert flash_attention_f32.launches - before == \
+                (per * eng.admit_syncs if model is card else 0)
+            streams.append({r.rid: r.out_tokens for r in done})
+        assert streams[0] == streams[1] == streams[2]
 
 
 def test_serving_on_the_card(cuda):

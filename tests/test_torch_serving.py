@@ -221,10 +221,66 @@ def test_launcher_serves_on_the_cpu_and_defers_what_is_not_ported(capsys):
                        "--requests", "3", "--max-new", "4", "--stats"]) == 0
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out and "[telemetry]" in out
-    for flag in (["--kv-dtype", "int8"], ["--ckpt-dir", "ckpt"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
-                        "cpu"] + flag)
+    assert serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4", "--kv-dtype",
+                       "int8"]) == 0
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+                    "--ckpt-dir", "ckpt"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b"])
+def test_launcher_serves_the_moe_and_hybrid_families(arch, capsys):
+    assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--requests", "3", "--max-new", "5"]) == 0
+    assert "served 3 requests / 15 tokens" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the moe and hybrid families and the int8 KV cache through the engine
+# ---------------------------------------------------------------------------
+
+# (arch, config overrides, prompt lengths): reduced mixtral's prompts are
+# longer than its 32-token window (prefill seeds the ring with S > W and
+# decode wraps it); zamba2's are any length up to one 256-token chunk
+FAMILY_SERVES = {
+    "mixtral": ("mixtral-8x7b", {}, (40, 40, 36, 40, 36)),
+    "zamba2": ("zamba2-2.7b", {}, (6, 6, 9, 6, 9)),
+    "llama-int8": ("llama3.2-1b", {"kv_dtype": "int8"}, PROMPT_LENS),
+}
+
+
+@pytest.fixture(scope="module", params=list(FAMILY_SERVES))
+def family(request):
+    arch, over, lens = FAMILY_SERVES[request.param]
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                                  dtype="float32", **over)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **over)
+    params = RefModel(ref_cfg).init(jax.random.key(0))
+    model = interop.model_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, params), device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    return ref_cfg, params, cfg, model, prompts
+
+
+@pytest.mark.parametrize("mode", ["device", "host"])
+def test_family_greedy_streams_match_reference(family, mode):
+    """Greedy streams equal to the reference engine's with the same
+    admission order: capacity drops depend on the batch (prefill counts
+    the edge-repeated pad rows, decode every slot), so each side serves
+    the same stream of batches."""
+    ref_cfg, params, cfg, model, prompts = family
+    kw = dict(n_slots=N_SLOTS, window=48, mode=mode, decode_chunk=CHUNK)
+    want = _serve(RefEngine(ref_cfg, params, **kw), RefRequest, prompts)
+    eng = ServeEngine(cfg, model, **kw)
+    got = _serve(eng, Request, prompts)
+    assert got == want
+    assert all(len(t) == MAX_NEW for t in got.values())
+    assert eng.window == (cfg.sliding_window or 48)
 
 
 def test_engine_serves_only_a_port_model():

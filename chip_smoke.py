@@ -21,10 +21,15 @@ Phases:
      shapes, at the moe and hybrid serves' shapes (zamba2's hd = 80 at
      B = 2, S = 128-1024; mixtral's hd = 128 at S = 5120 with its
      4096-token window) and at head_dims padded inside the launch (8, 24,
-     72, 256) with and without a window, q_offset > 0 and kv_len < Skv
-     (bfloat16 through the tensor-core kernel, float32 through the float32
-     kernel), and that a key tile outside every query's window is skipped
-     (the tensor-core kernel at a 64-key window against none);
+     72, 256) with and without a window, q_offset > 0 and kv_len < Skv,
+     non-causal at whisper's encoder shape (1500 x 1500 frames, two
+     chunks of 1024 + 476 keys) and its cross-attention from each prompt
+     length to the frames, with kv_len < Skv and Sq != Skv, and at the
+     audio and vlm serves' causal shapes (bfloat16 through the
+     tensor-core kernel, float32 through the float32 kernel, the
+     non-causal launches counted apart), and that a key tile outside
+     every query's window is skipped (the tensor-core kernel at a 64-key
+     window against none);
   4. drive the lattice path, `characterize` over the default 96-point
      design lattice, with the launch counters set to 0 just before it;
      check that each topology group's transient was one launch of the
@@ -135,6 +140,26 @@ Phases:
      then reduced mixtral (prompts past its window), zamba2 and int8-KV
      llama in float32 on the card against the CPU: greedy streams equal
      (device and host mode), prefill logits within 2e-5 of the largest;
+ 11c. drive the ssm, audio and vlm serves, each at full width and depth
+     in bf16 with seeded weights (the reference's weight count), counted
+     with the counters at 0 just before it, the 16-request workload with
+     64 new tokens each (half greedy, half top-k), every request its
+     budget, greedy streams equal host mode's, warm wall and prefill /
+     decode spans: xlstm-1.3b (prompts of 64-512 tokens; no flash launch;
+     torch operations per prefill dispatch, in its sLSTM scan, and per
+     decode step); whisper-large-v3 (prompts of 32-192 tokens within its
+     448-token decoder context: 96 tensor-core launches per prefill
+     dispatch, 64 of them non-causal; prefill logits kernel vs plain on
+     seeded frames held on its first 4 encoder and 4 decoder layers, the
+     full-depth gaps printed beside two plain schedules' gap);
+     internvl2-1b (prompts of 128-1024 tokens after 256 patches, window
+     2048: 24 launches per dispatch, pos and context at prompt + 256,
+     prefill logits kernel vs plain on seeded patches held on its first
+     4 layers, the full-depth gaps printed likewise); then reduced
+     xlstm, whisper (8 frames, the float32 kernel non-causal) and
+     internvl2 in float32 on the card against the CPU (streams equal in
+     device and host mode, logits within 2e-5), and `CoDesignQuery` over
+     the three archs (held to the CPU session, store replay, warm wall);
  12. drive co-design, the runtime loop, the compile service and the
      fleet, each with the counters at 0 just before it:
      `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
@@ -177,7 +202,9 @@ Phases:
      the tensor-core kernel at the serve's four prefill shapes, the
      float32 kernel at the same four and at the 2-layer float32 serve's
      two, both at the hybrid serve's four and the moe serve's windowed
-     one, SDPA there with an explicit window mask), their plain versions,
+     one, SDPA there with an explicit window mask, both at whisper's
+     non-causal encoder and cross shapes, SDPA with is_causal=False, and
+     at internvl2's four), their plain versions,
      their bounds and the library calls (`torch.linalg.solve_ex` and
      `torch.linalg.solve`; `scaled_dot_product_attention` in the same
      call), and the warm compile and `run_batch` walls; then one warm
@@ -188,7 +215,8 @@ Phases:
      scan kernel's device ms in it;
  14. print a {"kernels": [...]} JSON line (the scan row also carries the
      gradient path's launches; every row carries phase 12's, by part; the
-     flash rows carry phase 11b's and their times at the new shapes), the
+     flash rows carry phase 11b's and 11c's, the non-causal launches and
+     errors apart, and their times at the new shapes), the
      smoke's total wall, the card line, and as the last line {"ok": true,
      "device": {...}}.
 
@@ -1898,12 +1926,53 @@ FLASH_NEW_CASES = tuple((shape, 1024) for shape in HYBRID_FLASH_SHAPES
     ((2, 150, 180, 4, 4, 72, 20, 170, 33), 40),
     ((1, 256, 300, 4, 2, 256, 30, 290, 0), 1024),
     ((1, 256, 300, 4, 2, 256, 30, 290, 64), 40))
+# the shapes the ssm, audio and vlm serves launch, (B, Sq, Skv, H, K, hd,
+# q_offset, kv_len, window, causal): whisper-large-v3's prefills (B = 2,
+# H = K = 20, hd = 64), its encoder self-attention over the 1500 frames
+# and its cross-attention from each prompt length to them, both
+# non-causal, and its decoder's causal self-attention; internvl2-1b's
+# causal prefills over 256 patches and the prompt (H = 14, K = 2, G = 7);
+# xlstm-1.3b launches none
+XLSTM_LENS = (64, 128, 256, 512)
+WHISPER_LENS = (32, 64, 128, 192)
+# the decoder context of the published model (max_target_positions in
+# openai/whisper-large-v3's config): prompt + 64 new tokens stay within it
+WHISPER_CONTEXT = 448
+WHISPER_FRAMES = 1500
+VLM_LENS = (128, 256, 512, 1024)
+VLM_PATCHES, VLM_WINDOW = 256, 2048
+WHISPER_ENC_SHAPE = (2, WHISPER_FRAMES, WHISPER_FRAMES, 20, 20, 64, 0, None,
+                     0, False)
+WHISPER_CROSS_SHAPES = tuple((2, n, WHISPER_FRAMES, 20, 20, 64, 0, None, 0,
+                              False) for n in WHISPER_LENS)
+WHISPER_DEC_SHAPES = tuple((2, n, n, 20, 20, 64, 0, None, 0)
+                           for n in WHISPER_LENS)
+VLM_FLASH_SHAPES = tuple((2, VLM_PATCHES + n, VLM_PATCHES + n, 14, 2, 64, 0,
+                          None, 0) for n in VLM_LENS)
+# the first non-causal launches: the whisper shapes, and ragged ones
+# (kv_len < Skv at the encoder shape; Sq != Skv with G = 4), at the
+# model's chunk_kv (1500 keys run as 1024 + 476) and at one that ends
+# inside a key tile
+FLASH_NONCAUSAL_CASES = ((WHISPER_ENC_SHAPE, 1024),) + tuple(
+    (shape, 1024) for shape in WHISPER_CROSS_SHAPES) + (
+    ((2, WHISPER_FRAMES, WHISPER_FRAMES, 20, 20, 64, 0, 1391, 0, False), 1024),
+    ((1, 100, 300, 8, 2, 64, 0, 250, 0, False), 40),
+    ((2, 24, 150, 4, 4, 16, 0, None, 0, False), 64))
+FLASH_11C_CASES = FLASH_NONCAUSAL_CASES + tuple(
+    (shape, 1024) for shape in WHISPER_DEC_SHAPES + VLM_FLASH_SHAPES)
 # the skip check: the bf16 kernel at mixtral's prefill shape with a
 # 64-key window must take under this share of its time with none (it
 # visits ~2 of 80 key tiles a row tile)
 SKIP_WINDOW, SKIP_MAX_SHARE = 64, 0.25
-# kernel vs plain: the reference's own limits (tests/test_kernels.py)
+# kernel vs plain: the reference's own limits (tests/test_kernels.py);
+# bfloat16 also within FLASH_BF16_RTOL (4 units of bfloat16's 2^-8
+# rounding) of the plain output's largest magnitude. That matters where
+# many keys average the values down: at whisper's non-causal shapes
+# (~1500 keys a query) max|o| is 0.20-0.66, below 3e-2 absolute a
+# kernel could drop a tail key unseen; each non-causal case checks that
+# the plain version without its last key lies outside the limit
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+FLASH_BF16_RTOL = 2.0 ** -6
 # prefill logits through the kernel vs through the plain flash version,
 # both bf16 on the card, relative to the logits' largest magnitude: the
 # bf16 tolerance of the reference's kernel test
@@ -1928,76 +1997,111 @@ def flash_inputs(shape, dtype, dev):
 
 
 def flash_args(shape) -> tuple:
-    """(q_offset, kv_len, window) of a shape tuple, window 0 when it has
-    none."""
-    return shape[6], shape[7], shape[8] if len(shape) > 8 else 0
+    """(q_offset, kv_len, window, causal) of a shape tuple, window 0 and
+    causal True when it has none."""
+    return (shape[6], shape[7], shape[8] if len(shape) > 8 else 0,
+            shape[9] if len(shape) > 9 else True)
 
 
 def flash_work(shape, itemsize: int) -> tuple:
     """(bytes, operations) of one flash-attention launch: Q, K and V read
     once and O written once; 4 * hd operations (QK and PV multiply-adds)
-    per head and unmasked (query, key) pair (causal, below kv_len, and
-    inside the window when there is one)."""
+    per head and unmasked (query, key) pair: below kv_len, at or before
+    the query when causal (a non-causal launch counts Sq * kv_len pairs),
+    and inside the window when there is one."""
     B, Sq, Skv, H, K, hd = shape[:6]
-    off, kv_len, window = flash_args(shape)
+    off, kv_len, window, causal = flash_args(shape)
     kv_len = Skv if kv_len is None else kv_len
     nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Skv * K * hd)
-    pairs = sum(max(0, min(kv_len, off + i + 1)
+    pairs = sum(max(0, (min(kv_len, off + i + 1) if causal else kv_len)
                     - (max(0, off + i - window + 1) if window else 0))
                 for i in range(Sq))
     return nbytes, 4 * B * H * hd * pairs
 
 
-def flash_counts() -> dict:
+def flash_counts(noncausal: bool = False) -> dict:
     """Launches so far of each flash-attention kernel, by the dtype it
-    serves."""
+    serves; with `noncausal`, only those with causal = 0."""
     from repro_torch.kernels.flash_attention import kernel
-    return {torch.bfloat16: kernel.flash_attention_tc.launches,
-            torch.float32: kernel.flash_attention_f32.launches}
+    key = "noncausal_launches" if noncausal else "launches"
+    return {torch.bfloat16: getattr(kernel.flash_attention_tc, key),
+            torch.float32: getattr(kernel.flash_attention_f32, key)}
+
+
+def flash_limit(dtype, want) -> float:
+    """The limit of |kernel - plain| for the plain output `want`:
+    FLASH_ATOL, and for bfloat16 at most FLASH_BF16_RTOL * max|want|."""
+    if dtype != torch.bfloat16:
+        return FLASH_ATOL[dtype]
+    return min(FLASH_ATOL[dtype],
+               FLASH_BF16_RTOL * float(want.float().abs().max()))
 
 
 def check_flash_attention(dev) -> dict:
     """Both flash-attention kernels against the plain version on the card
-    at `FLASH_SHAPES`, `FLASH_CHUNKED` and `FLASH_NEW_CASES` (the moe and
-    hybrid serves' shapes, padded head_dims, windows): bfloat16 through
+    at `FLASH_SHAPES`, `FLASH_CHUNKED`, `FLASH_NEW_CASES` (the moe and
+    hybrid serves' shapes, padded head_dims, windows) and `FLASH_11C_CASES`
+    (the audio and vlm serves' shapes, non-causal first): bfloat16 through
     the tensor-core kernel, float32 through the float32 kernel, each call
-    launching the kernel of its dtype once and the other not at all; then
-    the skip check. Returns the largest error by dtype."""
+    launching the kernel of its dtype once (counted as non-causal iff the
+    case is) and the other not at all, within `flash_limit`, which a
+    non-causal case's plain version without its last key must exceed;
+    then the skip check. Returns the
+    largest error by dtype, and by dtype over the non-causal cases under
+    the key (dtype, "noncausal")."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
     worst = {}
     cases = ([(shape, 1024) for shape in FLASH_SHAPES] + list(FLASH_CHUNKED)
-             + list(FLASH_NEW_CASES))
-    for dtype, atol in FLASH_ATOL.items():
+             + list(FLASH_NEW_CASES) + list(FLASH_11C_CASES))
+    for dtype in FLASH_ATOL:
         other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
         name = ("flash_attention_tc" if dtype == torch.bfloat16
                 else "flash_attention")
-        worst[dtype] = 0.0
+        worst[dtype] = worst[dtype, "noncausal"] = 0.0
         for shape, chunk_kv in cases:
             q, k, v = flash_inputs(shape, dtype, dev)
-            off, kv_len, window = flash_args(shape)
+            off, kv_len, window, causal = flash_args(shape)
             before = flash_counts()
+            nc_before = flash_counts(noncausal=True)
             got = flash_attention_fwd(q, k, v, off, kv_len=kv_len,
-                                      window=window, chunk_kv=chunk_kv)
+                                      window=window, chunk_kv=chunk_kv,
+                                      causal=causal)
             after = flash_counts()
+            nc_after = flash_counts(noncausal=True)
             want = flash_attention_plain(q, k, v, q_offset=off,
                                          kv_len=kv_len, window=window,
-                                         chunk_kv=chunk_kv)
+                                         chunk_kv=chunk_kv, causal=causal)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
+            atol = flash_limit(dtype, want)
+            moved, note = None, ""
+            if not causal:
+                short = flash_attention_plain(
+                    q, k, v, q_offset=off, kv_len=(kv_len or shape[2]) - 1,
+                    window=window, chunk_kv=chunk_kv, causal=False)
+                moved = float((short.float() - want.float()).abs().max())
+                note = (f" (non-causal; the last key left out moves the "
+                        f"plain output by {moved!r})")
             routed = (after[dtype] == before[dtype] + 1
-                      and after[other] == before[other])
+                      and after[other] == before[other]
+                      and nc_after[dtype] - nc_before[dtype] == (not causal))
             ok = (routed and got.dtype == dtype
-                  and bool(torch.isfinite(got).all()) and err <= atol)
+                  and bool(torch.isfinite(got).all()) and err <= atol
+                  and (moved is None or moved > atol))
             log(f"check {name} {str(dtype)[6:]} (B, Sq, Skv, H, K, hd, "
-                f"q_offset, kv_len[, window]) = {shape}, chunk_kv "
+                f"q_offset, kv_len[, window[, causal]]) = {shape}, chunk_kv "
                 f"{chunk_kv}: max|do| "
-                f"vs plain {err!r} (limit {atol}), "
-                f"{'one launch' if routed else 'WRONG KERNEL'} "
+                f"vs plain {err!r} (limit {atol!r}), "
+                f"{'one launch' if routed else 'WRONG KERNEL'}"
+                f"{note} "
                 f"{'ok' if ok else 'FAILED'}")
             if not ok:
                 raise RuntimeError(f"flash_attention check {shape} failed")
             worst[dtype] = max(worst[dtype], err)
+            if not causal:
+                worst[dtype, "noncausal"] = max(worst[dtype, "noncausal"],
+                                                err)
     # a key tile wholly before every query's window is skipped: at
     # mixtral's prefill shape a 64-key window leaves ~2 of 80 tiles a row
     q, k, v = flash_inputs(MOE_FLASH_SHAPE, torch.bfloat16, dev)
@@ -2052,6 +2156,8 @@ def launch_counts() -> dict:
 def reset_counts() -> None:
     for fn in counted().values():
         fn.launches = 0
+        if hasattr(fn, "noncausal_launches"):
+            fn.noncausal_launches = 0
 
 
 def run_engine(model, cfg, mode: str, lens=SERVE_LENS, window=SERVE_WINDOW):
@@ -2081,7 +2187,7 @@ class PhaseEvents:
         self.model = model
         self.pairs = {"prefill": [], "decode_loop": []}
         # per prefill dispatch: (B, S, tensor-core and float32 flash
-        # launches it made)
+        # launches it made, and of those the non-causal ones, both kernels)
         self.prefills = []
 
     def __enter__(self):
@@ -2092,6 +2198,7 @@ class PhaseEvents:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 before = flash_counts()
+                nc_before = sum(flash_counts(noncausal=True).values())
                 start.record()
                 out = _fn(*args, **kwargs)
                 end.record()
@@ -2101,7 +2208,9 @@ class PhaseEvents:
                     B, S = args[0]["tokens"].shape
                     self.prefills.append(
                         (B, S, after[torch.bfloat16] - before[torch.bfloat16],
-                         after[torch.float32] - before[torch.float32]))
+                         after[torch.float32] - before[torch.float32],
+                         sum(flash_counts(noncausal=True).values())
+                         - nc_before))
                 return out
             setattr(self.model, name, timed)
         return self
@@ -2115,10 +2224,27 @@ class PhaseEvents:
         return sum(s.elapsed_time(e) for s, e in self.pairs[name])
 
 
+def frontend_batch(cfg, B: int, dev, seed: int) -> dict:
+    """Seeded standard-normal inputs of the stub frontends, in the working
+    dtype: the audio family's frames (B, enc_frames, d), the vlm family's
+    patches (B, n_patches, d) (tests/test_smoke_archs.py's make_batch
+    draws them so); none for the other families. The engine feeds zeros,
+    which would make every encoder row alike."""
+    from repro_torch.models.common import dtype_of
+    name, n = {"audio": ("frames", cfg.enc_frames),
+               "vlm": ("patches", cfg.n_patches)}.get(cfg.family, (None, 0))
+    if name is None:
+        return {}
+    rng = np.random.default_rng(seed)
+    return {name: torch.as_tensor(rng.standard_normal((B, n, cfg.d_model)),
+                                  dtype=dtype_of(cfg), device=dev)}
+
+
 def prefill_logits_vs_plain(model, cfg, dev, n: int,
                             window=SERVE_WINDOW) -> tuple:
     """Prefill logits of two n-token prompts (one admission group of the
-    serve) through the kernel and through the plain flash version, on the
+    serve, with seeded frames or patches for the audio and vlm families)
+    through the kernel and through the plain flash version, on the
     card."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain)
@@ -2126,12 +2252,13 @@ def prefill_logits_vs_plain(model, cfg, dev, n: int,
     rng = np.random.default_rng(SEED + n)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n)),
                            dtype=torch.int32, device=dev)
-    got, _, _ = model.prefill({"tokens": toks}, W=window)
+    batch = {"tokens": toks, **frontend_batch(cfg, 2, dev, SEED + 7 * n)}
+    got, _, _ = model.prefill(batch, W=window)
     kernel_path = attention.flash_attention
     attention.flash_attention = (
         lambda q, k, v, **kw: flash_attention_plain(q, k, v, **kw))
     try:
-        want, _, _ = model.prefill({"tokens": toks}, W=window)
+        want, _, _ = model.prefill(batch, W=window)
     finally:
         attention.flash_attention = kernel_path
     torch.cuda.synchronize()
@@ -2388,36 +2515,53 @@ FAMILY_LOGITS_RTOL = 2e-5   # card vs CPU prefill logits, float32
 
 def flash_per_dispatch(cfg) -> int:
     """Flash launches of one prefill dispatch: one per attention layer
-    (hybrid: one per application of the shared block)."""
-    return (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
-            else cfg.n_layers)
+    (hybrid: one per application of the shared block; audio: one per
+    encoder layer and two per decoder layer, its self-attention and its
+    cross-attention; ssm: none)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
-def serve_family(model, cfg, lens, window, label, card) -> dict:
+def noncausal_per_dispatch(cfg) -> int:
+    """Of those, the non-causal launches: the audio family's encoder
+    layers and cross-attentions."""
+    return (cfg.n_enc_layers + cfg.n_layers if cfg.family == "audio"
+            else 0)
+
+
+def serve_family(model, cfg, lens, window, label, card,
+                 host: bool = False) -> dict:
     """One serve at full width, counted: the 16-request workload with
     prompts of `lens` through `ServeEngine(n_slots=8, window, decode_chunk=
     8)` in device mode, with the launch counters set to 0 just before the
     run and read just after: every prefill dispatch launches
-    `flash_per_dispatch(cfg)` tensor-core kernels and no float32 one, and
+    `flash_per_dispatch(cfg)` tensor-core kernels, of them
+    `noncausal_per_dispatch(cfg)` non-causal, and no float32 one, and
     every request emits its budget; the launches of dispatches whose
-    prompts are longer than the sliding window are counted apart. Then a
-    warm serve timed (wall, prefill and decode spans by `PhaseEvents`),
-    with the counted run's streams."""
-    per = flash_per_dispatch(cfg)
+    prompts are longer than the sliding window are counted apart. With
+    `host`, the greedy streams equal a host-mode serve's. Then a warm
+    serve timed (wall, prefill and decode spans by `PhaseEvents`), with
+    the counted run's streams."""
+    per, per_nc = flash_per_dispatch(cfg), noncausal_per_dispatch(cfg)
     reset_counts()
     with PhaseEvents(model) as counted_run:
         eng, streams, first = run_engine(model, cfg, "device", lens, window)
     counts = flash_counts()
+    nc = flash_counts(noncausal=True)
     prefills = eng.admit_syncs
     W = cfg.sliding_window
-    windowed = sum(tc for _, S, tc, _ in counted_run.prefills
+    windowed = sum(tc for _, S, tc, _, _ in counted_run.prefills
                    if W and S > W)
-    n_long = sum(1 for _, S, _, _ in counted_run.prefills if W and S > W)
+    n_long = sum(1 for _, S, _, _, _ in counted_run.prefills if W and S > W)
     ok = (counts[torch.bfloat16] == per * prefills
           and counts[torch.float32] == 0
+          and nc[torch.bfloat16] == per_nc * prefills
           and len(counted_run.prefills) == prefills
-          and all(tc == per and f32 == 0
-                  for _, _, tc, f32 in counted_run.prefills)
+          and all(tc == per and f32 == 0 and n == per_nc
+                  for _, _, tc, f32, n in counted_run.prefills)
           and windowed == per * n_long and (n_long > 0) == (W > 0)
           and len(streams) == 4 * len(lens)
           and all(len(t) == SERVE_MAX_NEW for t in streams.values())
@@ -2426,16 +2570,28 @@ def serve_family(model, cfg, lens, window, label, card) -> dict:
     log(f"serve path {label}: {cfg.name}, {len(streams)} requests (prompts "
         f"{lens}), {sum(map(len, streams.values()))} tokens in {first:.2f} "
         f"s (first run), {prefills} prefill dispatches (B, S) "
-        f"{[(b, n) for b, n, _, _ in counted_run.prefills]}, "
+        f"{[(b, n) for b, n, _, _, _ in counted_run.prefills]}, "
         f"flash_attention_tc launches {counts[torch.bfloat16]} (expected "
         f"{per} x {prefills})"
+        + (f", of which non-causal {nc[torch.bfloat16]} (expected {per_nc} "
+           f"x {prefills}) and causal {counts[torch.bfloat16] - nc[torch.bfloat16]}"
+           if per_nc else "")
         + (f", of which past the {W}-token window {windowed} (expected "
            f"{per} x {n_long})" if W else "")
         + f", float32 flash_attention launches {counts[torch.float32]} "
-        f"(expected 0) "
+        f"(expected 0), every request {SERVE_MAX_NEW} tokens "
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise RuntimeError(f"serve path {label} counts or budgets")
+    if host:
+        _, hosted, _ = run_engine(model, cfg, "host", lens, window)
+        greedy = [rid for rid in streams if rid % 2 == 0]
+        same = all(streams[rid] == hosted[rid] for rid in greedy)
+        log(f"serve path {label}: greedy streams device vs host mode on the "
+            f"card: {'equal' if same else 'DIFFER'} ({len(greedy)} streams)")
+        if not same:
+            raise RuntimeError(f"serve path {label} device vs host greedy "
+                               f"streams")
     with PhaseEvents(model) as phases:
         eng, timed, wall = run_engine(model, cfg, "device", lens, window)
     if timed != streams:
@@ -2459,7 +2615,8 @@ def serve_family(model, cfg, lens, window, label, card) -> dict:
         f"chunks ({times['decode_tok_s']!r} tok/s for the {n_decoded} "
         f"tokens emitted by decode) [{card}]")
     return {"launches": counts[torch.bfloat16], "prefills": prefills,
-            "per_dispatch": per, "windowed": windowed, "times": times}
+            "per_dispatch": per, "windowed": windowed,
+            "noncausal": nc[torch.bfloat16], "times": times}
 
 
 def int8_path(model, cfg, dev, card, bf16_times) -> dict:
@@ -2541,6 +2698,8 @@ def plain_schedules_gap(model, dev, n: int, window: int) -> tuple:
     rng = np.random.default_rng(SEED + n)
     toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (2, n)),
                            dtype=torch.int32, device=dev)
+    batch = {"tokens": toks,
+             **frontend_batch(model.cfg, 2, dev, SEED + 7 * n)}
     kernel_path = attention.flash_attention
     outs = []
     try:
@@ -2548,7 +2707,7 @@ def plain_schedules_gap(model, dev, n: int, window: int) -> tuple:
             attention.flash_attention = (
                 lambda q, k, v, _c=chunk_kv, **kw: flash_attention_plain(
                     q, k, v, **{**kw, "chunk_kv": _c}))
-            outs.append(model.prefill({"tokens": toks}, W=window)[0])
+            outs.append(model.prefill(batch, W=window)[0])
     finally:
         attention.flash_attention = kernel_path
     return (float((outs[0] - outs[1]).abs().max()),
@@ -2605,21 +2764,24 @@ def hybrid_path(dev, card) -> dict:
     return served
 
 
-def family_cpu_parity(dev) -> int:
+def family_cpu_parity(dev, cases=FAMILY_CPU_CASES) -> int:
     """Card against CPU at the reduced configs in float32 (TF32 off):
     mixtral (prompts longer than its window), zamba2 and llama with an
-    int8 cache. Weights made on the CPU and copied to the card; prefill
-    logits of the first admission group within `FAMILY_LOGITS_RTOL` of the
-    largest; greedy streams equal on the card in device and host mode and
-    on the CPU; the card's device-mode run counted (every prefill
-    attention through the float32 kernel). Returns its launches."""
+    int8 cache, or `cases`. Weights made on the CPU and copied to the
+    card; prefill logits of the first admission group (with seeded frames
+    or patches for the audio and vlm families) within
+    `FAMILY_LOGITS_RTOL` of the largest; greedy streams equal on the card
+    in device and host mode and on the CPU; the card's device-mode run
+    counted (every prefill attention through the float32 kernel, the
+    audio family's encoder and cross-attention non-causal). Returns its
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serving import Request, ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     total = 0
-    for arch, over, lens in FAMILY_CPU_CASES:
+    for arch, over, lens in cases:
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   dtype="float32", **over)
         cpu = Model(cfg, device="cpu", seed=SEED)
@@ -2628,10 +2790,12 @@ def family_cpu_parity(dev) -> int:
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in lens]
         toks = np.stack(prompts[:2])
-        want, _, _ = cpu.prefill({"tokens": torch.as_tensor(toks)}, W=64)
-        got, _, _ = card.prefill({"tokens": torch.as_tensor(toks,
-                                                             device=dev)},
+        extra = frontend_batch(cfg, 2, "cpu", SEED + 5)
+        want, _, _ = cpu.prefill({"tokens": torch.as_tensor(toks), **extra},
                                  W=64)
+        got, _, _ = card.prefill(
+            {"tokens": torch.as_tensor(toks, device=dev),
+             **{k: t.to(dev) for k, t in extra.items()}}, W=64)
         err = float((got.cpu() - want).abs().max())
         scale = float(want.abs().max())
         streams = []
@@ -2648,12 +2812,14 @@ def family_cpu_parity(dev) -> int:
             done, _ = eng.run()
             if counting:
                 counts = flash_counts()
+                nc = flash_counts(noncausal=True)[torch.float32]
                 want_n = flash_per_dispatch(cfg) * eng.admit_syncs
+                want_nc = noncausal_per_dispatch(cfg) * eng.admit_syncs
             streams.append({r.rid: r.out_tokens for r in done})
         same = (streams[0] == streams[1] == streams[2]
                 and all(len(t) == FAMILY_CPU_NEW for t in streams[0].values()))
         ok = (same and err <= FAMILY_LOGITS_RTOL * scale
-              and counts[torch.float32] == want_n
+              and counts[torch.float32] == want_n and nc == want_nc
               and counts[torch.bfloat16] == 0)
         log(f"serve card vs CPU: {cfg.name} ({cfg.family}"
             f"{', int8 KV' if cfg.kv_dtype == 'int8' else ''}"
@@ -2662,12 +2828,222 @@ def family_cpu_parity(dev) -> int:
             f"card device = card host = CPU {same}; prefill logits max|d| "
             f"{err!r} (limit {FAMILY_LOGITS_RTOL} x {scale!r}); float32 "
             f"flash_attention launches {counts[torch.float32]} (expected "
-            f"{want_n}), flash_attention_tc {counts[torch.bfloat16]} "
+            f"{want_n}; non-causal {nc}, expected {want_nc}), "
+            f"flash_attention_tc {counts[torch.bfloat16]} "
             f"(expected 0) {'ok' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"card vs CPU {cfg.name}")
         total += counts[torch.float32]
     return total
+
+
+# -- the ssm, audio and vlm families (phase 11c), each at full width and
+# depth in bf16 with seeded weights, the reference's param_count()
+XLSTM_ARCH, XLSTM_WEIGHTS = "xlstm-1.3b", 2_197_576_016
+WHISPER_ARCH, WHISPER_WEIGHTS = "whisper-large-v3", 2_020_628_480
+VLM_ARCH, VLM_WEIGHTS = "internvl2-1b", 493_780_992
+# whisper's and internvl2's prefill logits, kernel vs plain, are held on
+# their first 4 layers (whisper: 4 encoder and 4 decoder layers): at full
+# depth the seeded stacks amplify bf16 rounding up to the 3e-2 limit or
+# past it, so two plain schedules part by 0.149-0.160 of a 3.97-4.54
+# whisper logit (kernel vs plain 0.142-0.156) and by 0.092 of a 2.71
+# internvl2 logit (kernel vs plain 0.070-0.077 of 2.73-2.87), on NVIDIA
+# H100 80GB HBM3; at 4 + 4 whisper layers plain vs plain is 0.038-0.040
+# of 4.17-4.32 (kernel vs plain 0.035-0.042). The full-depth gaps and the
+# cut's plain gap are printed every run
+WHISPER_CUT = VLM_CUT = 4
+# card vs CPU at the reduced configs in float32: xlstm (prompts of one
+# mLSTM chunk), whisper (8 frames: its encoder and cross-attention run the
+# float32 kernel non-causal), internvl2 (4 patches before each prompt)
+FAMILY_11C_CPU_CASES = (("xlstm-1.3b", {}, (24, 24, 40)),
+                        ("whisper-large-v3", {}, (12, 12, 20)),
+                        ("internvl2-1b", {}, (12, 12, 20)))
+
+
+def load_family(arch: str, dev, weights: int, label: str):
+    """`arch` at full width and depth in bf16 with seeded weights on the
+    card, its weight count held to `weights` (the reference's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    n = model.param_count()
+    log(f"serve path {label}: {cfg.name} at full width and depth "
+        f"({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_frames} "
+           f"frames" if cfg.n_enc_layers else "")
+        + (f", {cfg.n_patches} patches" if cfg.n_patches else "")
+        + f", d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"hd {cfg.hd()}): {n} bf16 weights (expected {weights}), seeded "
+        f"init on the card in {time.perf_counter() - t0:.2f} s")
+    if n != weights:
+        raise RuntimeError(f"{label} weight count")
+    return cfg, model
+
+
+def xlstm_ops(model, cfg, dev, card) -> dict:
+    """Torch operations, under the dispatch counter, of one prefill
+    dispatch (B = 2) at the shortest and longest prompt, of its sLSTM
+    layers alone, and of one decode step of the serve's 8 slots."""
+    from repro_torch.models import xlstm
+    prefill = {}
+    for n in (XLSTM_LENS[0], XLSTM_LENS[-1]):
+        toks = torch.zeros((2, n), dtype=torch.int32, device=dev)
+        with OpCount() as ops:
+            model.prefill({"tokens": toks})
+        h = torch.zeros((2, n, cfg.d_model), dtype=model.embed.dtype,
+                        device=dev)
+        with OpCount() as s_ops:
+            xlstm.s_apply(model.slstm[0], h, cfg)
+        prefill[n] = (ops.n, s_ops.n * len(model.slstm))
+        if ops.devices != {"cuda"}:
+            raise RuntimeError("xlstm prefill: an operation left the card")
+    cache = model.init_cache(SERVE_SLOTS, SERVE_WINDOW)
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((SERVE_SLOTS,), 8, dtype=torch.int32, device=dev)
+    with OpCount() as ops:
+        model.decode_step(cache, tok, pos)
+    torch.cuda.synchronize()
+    log(f"xlstm ops: one prefill dispatch (B = 2) "
+        + ", ".join(f"at S = {n}: {a} torch operations, {b} of them in the "
+                    f"{len(model.slstm)} sLSTM layers' serial scan "
+                    f"({b / (len(model.slstm) * n)!r} per layer and step)"
+                    for n, (a, b) in prefill.items())
+        + f"; one decode step of {SERVE_SLOTS} slots: {ops.n} torch "
+        f"operations [{card}]")
+    return {"prefill": prefill, "decode_step": ops.n}
+
+
+def xlstm_path(dev, card) -> dict:
+    """The ssm serve: xlstm-1.3b at full width and depth (42 mLSTM and 6
+    sLSTM layers, bf16), the 16 requests of `XLSTM_LENS` through
+    `serve_family` with host mode's greedy streams: no flash launch, every
+    request its budget; then the torch operations per prefill dispatch
+    and per decode step."""
+    cfg, model = load_family(XLSTM_ARCH, dev, XLSTM_WEIGHTS, "ssm")
+    served = serve_family(model, cfg, XLSTM_LENS, SERVE_WINDOW, "ssm", card,
+                          host=True)
+    served["ops"] = xlstm_ops(model, cfg, dev, card)
+    del model
+    torch.cuda.empty_cache()
+    return served
+
+
+def whisper_path(dev, card) -> dict:
+    """The audio serve: whisper-large-v3 at full width and depth (32
+    encoder layers over 1500 frames, 32 decoder layers, bf16), the 16
+    requests of `WHISPER_LENS` (prompt + 64 new tokens within its
+    448-token decoder context, the cache window) through `serve_family`
+    with host mode's greedy streams: 96 tensor-core flash launches per
+    prefill dispatch, 64 of them non-causal. Then prefill logits on
+    seeded frames through the kernel against the plain flash version at
+    each prompt length, on the model cut to its first `WHISPER_CUT`
+    encoder and decoder layers: with seeded random weights the 64-layer
+    stack amplifies bf16 rounding, so at full depth even two schedules of
+    the plain version part by more than the limit; the full-depth gaps,
+    kernel vs plain and plain vs plain, are printed beside each other."""
+    cfg, model = load_family(WHISPER_ARCH, dev, WHISPER_WEIGHTS, "audio")
+    served = serve_family(model, cfg, WHISPER_LENS, WHISPER_CONTEXT,
+                          "audio", card, host=True)
+    served["full_depth_gaps"] = full_depth_gaps(
+        model, cfg, dev, WHISPER_LENS, WHISPER_CONTEXT,
+        f"audio bf16, all {cfg.n_enc_layers} + {cfg.n_layers} layers",
+        "seeded frames")
+    del model
+    torch.cuda.empty_cache()
+    served["logits_rel"] = check_on_cut(
+        dataclasses.replace(cfg, n_layers=WHISPER_CUT,
+                            n_enc_layers=WHISPER_CUT), dev, WHISPER_LENS,
+        WHISPER_CONTEXT, f"audio bf16 (first {WHISPER_CUT} encoder and "
+        f"{WHISPER_CUT} decoder layers, seeded frames)")
+    return served
+
+
+def full_depth_gaps(model, cfg, dev, lens, window, label: str,
+                    inputs: str) -> list:
+    """At each prompt length of `lens`: prefill logits through the kernel
+    against the plain flash version, and two schedules of the plain
+    version against each other, printed and not checked (a seeded deep
+    stack amplifies bf16 rounding); the logits must be finite. Returns
+    (kernel vs plain, plain vs plain, largest logit) per length."""
+    gaps = []
+    for n in lens:
+        err, scale, finite = prefill_logits_vs_plain(model, cfg, dev, n,
+                                                     window)
+        floor, _ = plain_schedules_gap(model, dev, n, window)
+        log(f"serve path {label}, 2 x {n} tokens on {inputs}: prefill "
+            f"logits kernel vs plain flash max|d| {err!r}, plain (chunk_kv "
+            f"1024) vs plain (chunk_kv 64) {floor!r}, largest logit "
+            f"{scale!r} (not checked: the seeded stack amplifies bf16 "
+            f"rounding)")
+        if not finite:
+            raise RuntimeError(f"{label} prefill logits at {n} tokens are "
+                               f"not finite")
+        gaps.append((err, floor, scale))
+    return gaps
+
+
+def check_on_cut(cut, dev, lens, window, label: str) -> float:
+    """The model of config `cut` (a shallow cut of a full-width config,
+    seeded as the full one): prefill logits through the kernel against
+    the plain flash version within `LOGITS_RTOL` of the largest at each
+    of `lens`, with the two plain schedules' gap printed beside them.
+    Returns the largest relative error."""
+    from repro_torch.models.model import Model
+    shallow = Model(cut, device=dev, seed=SEED)
+    worst = check_prefill_logits(shallow, cut, dev, LOGITS_RTOL, label,
+                                 lens=lens, window=window)
+    for n in lens:
+        floor, scale = plain_schedules_gap(shallow, dev, n, window)
+        log(f"serve path {label}: prefill logits (2 x {n} tokens) plain "
+            f"(chunk_kv 1024) vs plain (chunk_kv 64) max|d| {floor!r}, "
+            f"largest logit {scale!r}: the rounding floor of the check")
+    del shallow
+    torch.cuda.empty_cache()
+    return worst
+
+
+def vlm_path(dev, card) -> dict:
+    """The vlm serve: internvl2-1b at full width and depth (24 layers,
+    bf16, tied embeddings), the 16 requests of `VLM_LENS` after its 256
+    patches (window 2048) through `serve_family` with host mode's greedy
+    streams: 24 tensor-core flash launches per prefill dispatch (G = 7),
+    every slot's pos and context at prompt + 256 after admission. Then
+    prefill logits on seeded patches through the kernel against the plain
+    flash version at each prompt length, on the model cut to its first
+    `VLM_CUT` layers: at full depth two schedules of the plain version
+    part by more than the limit allows a kernel; the full-depth gaps are
+    printed beside each other, as whisper's."""
+    from repro_torch.serving import ServeEngine
+    cfg, model = load_family(VLM_ARCH, dev, VLM_WEIGHTS, "vlm")
+    served = serve_family(model, cfg, VLM_LENS, VLM_WINDOW, "vlm", card,
+                          host=True)
+    eng = ServeEngine(cfg, model, n_slots=SERVE_SLOTS, window=VLM_WINDOW,
+                      decode_chunk=SERVE_CHUNK, seed=SEED)
+    reqs = serve_requests(cfg.vocab_size, VLM_LENS)[:SERVE_SLOTS]
+    for r in reqs:
+        eng.submit(r)
+    eng._admit()
+    want = [len(r.prompt) + cfg.n_patches for r in reqs]
+    ok = eng.pos.tolist() == eng._ctx == want
+    log(f"serve path vlm: after admission pos {eng.pos.tolist()} and context "
+        f"rows {eng._ctx} (expected prompt + {cfg.n_patches} patches: "
+        f"{want}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("vlm positions")
+    del eng
+    served["full_depth_gaps"] = full_depth_gaps(
+        model, cfg, dev, VLM_LENS, VLM_WINDOW,
+        f"vlm bf16, all {cfg.n_layers} layers",
+        f"{cfg.n_patches} seeded patches")
+    del model
+    torch.cuda.empty_cache()
+    served["logits_rel"] = check_on_cut(
+        dataclasses.replace(cfg, n_layers=VLM_CUT), dev, VLM_LENS,
+        VLM_WINDOW, f"vlm bf16 (first {VLM_CUT} layers, seeded patches)")
+    return served
 
 
 def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
@@ -2684,10 +3060,12 @@ def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
     out = {}
     for shape in shapes:
         q, k, v = flash_inputs(shape, dtype, dev)
-        window = flash_args(shape)[2]
+        _, _, window, causal = flash_args(shape)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        kern = lambda: flash_attention_fwd(q, k, v, window=window)
-        plain = lambda: flash_attention_plain(q, k, v, window=window)
+        kern = lambda: flash_attention_fwd(q, k, v, window=window,
+                                           causal=causal)
+        plain = lambda: flash_attention_plain(q, k, v, window=window,
+                                              causal=causal)
         if window:
             # SDPA with an explicit (Sq, Skv) mask: causal and windowed
             i = torch.arange(shape[1], device=dev)[:, None]
@@ -2697,15 +3075,17 @@ def time_flash_shapes(dev, card, shapes, dtype, kernel_name) -> dict:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
         else:
             lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         p1, k1, l1 = time_ms(plain, 10), time_ms(kern, 50), time_ms(lib, 50)
         k2, p2, l2 = time_ms(kern, 50), time_ms(plain, 10), time_ms(lib, 50)
         d = device_ms(kern, kernel_name, reps=20)
         nbytes, flops = flash_work(shape, itemsize)
         bound, by = bound_of(nbytes, flops, peak)
         label = f"B={shape[0]} S={shape[1]}" + (
+            f" Skv={shape[2]}" if shape[2] != shape[1] else "") + (
             f" hd={shape[5]}" if shape[5] != 64 else "") + (
-            f" window={window}" if window else "")
+            f" window={window}" if window else "") + (
+            "" if causal else " non-causal")
         ms = (k1 + k2) / 2
         out[label] = dict(ms=ms, device_ms=d, plain_ms=(p1 + p2) / 2,
                           library_ms=(l1 + l2) / 2, bound_ms=bound,
@@ -2737,9 +3117,11 @@ def time_flash(dev, card) -> dict:
     """The tensor-core kernel at the serve's four prefill shapes, the
     float32 kernel at the same four (the full-width float32 serve's) and at
     the 2-layer float32 serve's two; both kernels at the hybrid serve's
-    four (zamba2, hd = 80) and at the moe serve's windowed shape (mixtral,
-    window 4096); each mean is a serve's mean per launch over the shapes
-    it launches equally often."""
+    four (zamba2, hd = 80), at the moe serve's windowed shape (mixtral,
+    window 4096), at the audio serve's non-causal ones (whisper's encoder
+    and its cross-attention from the four prompt lengths, SDPA with
+    is_causal=False) and at the vlm serve's four (internvl2, G = 7); each
+    mean is over the shapes."""
     new = {}
     for dtype, key, name in ((torch.bfloat16, "tc", "flash_attention_tc_kernel"),
                              (torch.float32, "f32", "flash_attention_kernel")):
@@ -2747,6 +3129,11 @@ def time_flash(dev, card) -> dict:
             dev, card, HYBRID_FLASH_SHAPES, dtype, name)
         new[f"{key}_moe"] = time_flash_shapes(
             dev, card, (MOE_FLASH_SHAPE,), dtype, name)
+        new[f"{key}_audio"] = time_flash_shapes(
+            dev, card, (WHISPER_ENC_SHAPE,) + WHISPER_CROSS_SHAPES, dtype,
+            name)
+        new[f"{key}_vlm"] = time_flash_shapes(
+            dev, card, VLM_FLASH_SHAPES, dtype, name)
     return {**new,
             "tc": time_flash_shapes(dev, card, SERVE_FLASH_SHAPES,
                                     torch.bfloat16,
@@ -2943,24 +3330,26 @@ def hold_responses(label, got, want, reqs) -> dict:
     return worst
 
 
-def codesign_path(card) -> None:
-    """`CoDesignQuery` through `Session(device="cuda")`: the dense archs,
-    mixtral-8x7b with zamba2-2.7b, and the README's quickstart, each in a
-    fresh session with the counters
-    at 0: no kernel launch, one vdd evaluation and one cube; held to the
-    CPU session's report; a fresh session on the store the first wrote
-    evaluates nothing; the warm wall."""
+def codesign_path(card, labels=("dense archs", "moe and hybrid archs",
+                                 "README quickstart")) -> None:
+    """`CoDesignQuery` through `Session(device="cuda")`, the queries of
+    `labels`: the dense archs, mixtral-8x7b with zamba2-2.7b, the README's
+    quickstart, or xlstm-1.3b with whisper-large-v3 and internvl2-1b, each
+    in a fresh session with the counters at 0: no kernel launch, one vdd
+    evaluation and one cube; held to the CPU session's report; a fresh
+    session on the store the first wrote evaluates nothing; the warm
+    wall."""
     from repro_torch.api import CoDesignQuery, Session
     from repro_torch.workloads import profile_arch
-    queries = {
-        "dense archs": CoDesignQuery(tuple(
-            profile_arch(a, CODESIGN_SHAPE) for a in CODESIGN_ARCHS)),
-        "moe and hybrid archs": CoDesignQuery(tuple(
-            profile_arch(a, CODESIGN_SHAPE) for a in (MOE_ARCH,
-                                                      HYBRID_ARCH))),
-        "README quickstart": CoDesignQuery(tuple(
-            profile_arch(a, CODESIGN_SHAPE) for a in README_ARCHS),
-            vdd_scales=VDD_LADDER)}
+    archs = {"dense archs": CODESIGN_ARCHS,
+             "moe and hybrid archs": (MOE_ARCH, HYBRID_ARCH),
+             "README quickstart": README_ARCHS,
+             "ssm, audio and vlm archs": (XLSTM_ARCH, WHISPER_ARCH,
+                                          VLM_ARCH)}
+    queries = {label: CoDesignQuery(
+        tuple(profile_arch(a, CODESIGN_SHAPE) for a in archs[label]),
+        **({"vdd_scales": VDD_LADDER} if label == "README quickstart"
+           else {})) for label in labels}
     store = ROOT / "build" / "smoke_codesign_store"
     for label, q in queries.items():
         sess = Session(device="cuda")
@@ -3483,7 +3872,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    marks = []
 
+    def phase(name: str) -> None:
+        """Start phase `name`, logging the wall of the one before it."""
+        now = time.perf_counter()
+        if marks:
+            log(f"phase {marks[-1][0]} wall: {now - marks[-1][1]!r} s")
+        marks.append((name, now))
+
+    phase("1")
     # -- 1. card and toolchain
     nvcc = subprocess.run([build.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout
@@ -3491,6 +3889,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc "
         f"{nvcc.strip().splitlines()[-1]}")
 
+    phase("2")
     # -- 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
     paths = build.build_all()
@@ -3507,6 +3906,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
 
+    phase("3")
     # -- 3. kernels against their plain versions on the card
     cfgs = lattice_configs()
     groups = list(group_by_topology(cfgs).values())
@@ -3570,6 +3970,7 @@ def main() -> int:
     gc_err = check_gc_array_step(dev)
     fa_err = check_flash_attention(dev)
 
+    phase("4")
     # -- 4. the main path, counted
     n_groups = len(groups)
     fused.fused_newton.launches = 0
@@ -3612,6 +4013,7 @@ def main() -> int:
             log("FAILED: anchor")
             return 1
 
+    phase("5")
     # -- 5. the warm lattice wall (the kernels are timed in phase 12:
     # kernel launches run slower after a profiler session)
     walls = []
@@ -3625,18 +4027,22 @@ def main() -> int:
         f"{', '.join(repr(w) for w in walls)} s, median "
         f"{statistics.median(walls)!r} s [{card}]")
 
+    phase("6")
     # -- 6. the compile path and the run_batch sweep, counted
     compiled = compile_path(dev)
     batch_launches = batch_path()
 
+    phase("7")
     # -- 7. the array path, counted
     write_launches = write_path()
 
+    phase("8")
     # -- 8. the match path through the query API, counted, held to the
     # CPU, then its warm walls (before any profiler session)
     matched = match_path(cfgs, cpu, n_groups, compiled, card)
     time_match(cfgs, card)
 
+    phase("9")
     # -- 9. the layout path (counted, held to the CPU and to phase 4's
     # modeled t_cell, replayed from a store), its warm walls and split;
     # then the sparse-LU engine over the same lattice
@@ -3644,6 +4050,7 @@ def main() -> int:
     time_layout(card)
     sparse_path(cfgs, gpu, card)
 
+    phase("10")
     # -- 10. the gradient path: t_cell_grad_fn under autograd on the card
     # (counted, held to the CPU, central differences, the sparse engine),
     # then OptimizeQuery through the query API; walls and op counts
@@ -3653,6 +4060,7 @@ def main() -> int:
         return 1
     optimize_path(card)
 
+    phase("11")
     # -- 11. the serving path at full width, counted, and the card against
     # the CPU at full width and reduced depth
     from repro_torch.configs import get_config
@@ -3672,17 +4080,29 @@ def main() -> int:
     served_f32 = serve_path_f32(dev, card)
     parity_launches = serve_cpu_parity(dev)
 
+    phase("11b")
     # -- 11b. the moe and hybrid families at full width, counted, and the
     # reduced configs on the card against the CPU
     served_moe = moe_path(dev, card)
     served_hybrid = hybrid_path(dev, card)
     family_launches = family_cpu_parity(dev)
 
+    phase("11c")
+    # -- 11c. the ssm, audio and vlm families at full width, counted, the
+    # reduced configs on the card against the CPU, and co-design over them
+    served_ssm = xlstm_path(dev, card)
+    served_audio = whisper_path(dev, card)
+    served_vlm = vlm_path(dev, card)
+    family_11c_launches = family_cpu_parity(dev, FAMILY_11C_CPU_CASES)
+    codesign_path(card, labels=("ssm, audio and vlm archs",))
+
+    phase("12")
     # -- 12. co-design, the measured loop at full width, the compile
     # service and the fleet on the card, each counted and held to the CPU;
     # then the repeatability of the sparse sweep and the compile
     codesigned = codesign_fleet_phase(dev, cfgs, cpu, n_groups, card)
 
+    phase("13")
     # -- 13. timing of the new paths and kernels, on the card (the walls
     # first: kernel launches run slower after a profiler session)
     time_paths(card)
@@ -3718,6 +4138,7 @@ def main() -> int:
     profile_query(layout_query(), "layout sweep", n_groups, card)
     profile_grad(cfgs, card)
 
+    phase("14")
     # -- 14. summary lines
     t16 = timings["B=16"]
     fleet_launches = codesigned["fleet"]
@@ -3805,15 +4226,25 @@ def main() -> int:
         moe_launches=served_moe["launches"],
         moe_windowed_launches=served_moe["windowed"],
         hybrid_launches=served_hybrid["launches"],
-        int8_launches=served_int8["launches"])
-    rows["flash_attention"]["family_cpu_parity_launches"] = family_launches
+        int8_launches=served_int8["launches"],
+        # phase 11c: whisper's (64 of 96 a dispatch non-causal),
+        # internvl2's, and xlstm's none
+        audio_launches=served_audio["launches"],
+        audio_noncausal_launches=served_audio["noncausal"],
+        vlm_launches=served_vlm["launches"],
+        ssm_launches=served_ssm["launches"],
+        max_abs_err_noncausal=fa_err[torch.bfloat16, "noncausal"])
+    rows["flash_attention"].update(
+        family_cpu_parity_launches=family_launches,
+        family_11c_cpu_parity_launches=family_11c_launches,
+        max_abs_err_noncausal=fa_err[torch.float32, "noncausal"])
     for key, row in (("tc", "flash_attention_tc"),
                      ("f32", "flash_attention")):
         rows[row]["new_shapes"] = {
             f"{part} {label}": {f: t[f] for f in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}
-            for part in ("hybrid", "moe")
+            for part in ("hybrid", "moe", "audio", "vlm")
             for label, t in fa_times[f"{key}_{part}"].items()
             if label != "mix"}
     if any(k["launches"] <= 0 for k in kernels) or batch_launches <= 0 \
@@ -3822,8 +4253,11 @@ def main() -> int:
                 for s in (served, served_f32)) or any(
                 s["launches"] != s["per_dispatch"] * s["prefills"]
                 or s["launches"] <= 0
-                for s in (served_moe, served_hybrid, served_int8)) \
-            or served_moe["windowed"] <= 0 or family_launches <= 0:
+                for s in (served_moe, served_hybrid, served_int8,
+                          served_audio, served_vlm)) \
+            or served_moe["windowed"] <= 0 or family_launches <= 0 \
+            or served_ssm["launches"] != 0 or family_11c_launches <= 0 \
+            or served_audio["noncausal"] != 64 * served_audio["prefills"]:
         log("FAILED: a kernel of a path was never launched")
         return 1
     log(f"smoke total wall: {time.perf_counter() - t_smoke!r} s [{card}]")

@@ -81,18 +81,26 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
 
     tree: the reference's parameter tree as numpy
     (`jax.tree.map(np.asarray, params)`): "embed", "final_norm",
-    ["unembed"], and the layer stack, every leaf stacked over a leading
-    layer axis: "blocks" (dense and moe; a moe block holds "moe" {router,
-    w1, w3, w2} and, for arctic, "dense_mlp"), or "mamba" (hybrid), whose
-    shared block "shared_attn" is not stacked. Layer i's slice goes to
-    `blocks[i]` (or `mamba[i]`) under the same names, each weight in the
-    dtype of the port's parameter (the working dtype, but float32 for the
-    router and the Mamba2 A_log, D and dt_bias, as in the reference) on
-    `device`. The head layouts are kept as they are, so query head h stays
-    kv head h // G, group h % G."""
-    from repro_torch.models.model import Model
+    ["unembed"], and the layer stacks, every leaf stacked over a leading
+    layer axis of the stack's own depth: "blocks" (dense, vlm and moe,
+    n_layers; a moe block holds "moe" {router, w1, w3, w2} and, for
+    arctic, "dense_mlp"), "mamba" (hybrid, n_layers; its shared block
+    "shared_attn" is not stacked), "mlstm" and "slstm" (ssm, n_layers -
+    n_layers // slstm_every and n_layers // slstm_every), "enc" and "dec"
+    (audio, n_enc_layers and n_layers; "enc_norm" is not stacked). Layer
+    i's slice goes to `<stack>[i]` under the same names, each weight in
+    the dtype of the port's parameter (the working dtype, but float32 for
+    the MoE router, the Mamba2 A_log, D and dt_bias, and the xLSTM gates'
+    w_if, b_if and b, as in the reference) on `device`. The head layouts
+    are kept as they are, so query head h stays kv head h // G, group
+    h % G."""
+    from repro_torch.models.model import Model, xlstm_depths
 
     model = Model(cfg, device="meta").to_empty(device=device)
+    n_m, n_s = xlstm_depths(cfg) if cfg.slstm_every else (0, 0)
+    depths = {"blocks": cfg.n_layers, "mamba": cfg.n_layers,
+              "dec": cfg.n_layers, "enc": cfg.n_enc_layers,
+              "mlstm": n_m, "slstm": n_s}
 
     def flat(d, prefix=""):
         for k, v in d.items():
@@ -101,17 +109,16 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
             else:
                 yield f"{prefix}{k}", np.asarray(v)
 
-    stacked = ("blocks", "mamba")
     values = {}
     for name, a in flat({k: v for k, v in tree.items()
-                         if k not in stacked}):
+                         if k not in depths}):
         values[name] = a
-    for stack in stacked:
+    for stack, depth in depths.items():
         for name, a in flat(tree.get(stack, {})):
-            if a.shape[0] != cfg.n_layers:
+            if a.shape[0] != depth:
                 raise ValueError(f"{stack}.{name} has {a.shape[0]} layers, "
-                                 f"the config {cfg.n_layers}")
-            for layer in range(cfg.n_layers):
+                                 f"the config {depth}")
+            for layer in range(depth):
                 values[f"{stack}.{layer}.{name}"] = a[layer]
     params = dict(model.named_parameters())
     if set(values) != set(params):

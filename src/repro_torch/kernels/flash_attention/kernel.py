@@ -1,5 +1,5 @@
-"""Causal GQA flash-attention forward as two CUDA kernels, one per dtype,
-and its plain PyTorch version.
+"""GQA flash-attention forward, causal or not, as two CUDA kernels, one per
+dtype, and its plain PyTorch version.
 
 Replaces the Pallas kernel `repro.kernels.flash_attention.kernel`
 (`flash_attention_fwd`, body `_kernel`): online softmax over key tiles
@@ -140,22 +140,26 @@ def _launch(name: str, q, k, v, args):
 
 def flash_attention_tc(q, k, v, args):
     """Launch `csrc/flash_attention_tc.cu` on bf16 CUDA tensors checked by
-    `route`, with its int arguments `args`; counts the launch."""
+    `route`, with its int arguments `args`; counts the launch, and in
+    `noncausal_launches` a launch with causal = 0."""
     out = _launch("flash_attention_tc", q, k, v, args)
     flash_attention_tc.launches += 1
+    flash_attention_tc.noncausal_launches += not args[8]
     return out
 
 
 def flash_attention_f32(q, k, v, args):
     """Launch `csrc/flash_attention.cu` on float32 CUDA tensors checked by
-    `route`, with its int arguments `args`; counts the launch."""
+    `route`, with its int arguments `args`; counts the launch, and in
+    `noncausal_launches` a launch with causal = 0."""
     out = _launch("flash_attention", q, k, v, args)
     flash_attention_f32.launches += 1
+    flash_attention_f32.noncausal_launches += not args[8]
     return out
 
 
-flash_attention_tc.launches = 0
-flash_attention_f32.launches = 0
+flash_attention_tc.launches = flash_attention_tc.noncausal_launches = 0
+flash_attention_f32.launches = flash_attention_f32.noncausal_launches = 0
 
 
 def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,

@@ -59,9 +59,8 @@ def derive(analysis: dict, *, n_chips: int, model_flops: float) -> Roofline:
 
 
 def active_params(cfg) -> int:
-    """Active weights of `cfg`, counted on the meta device (no storage).
-    A family the port's Model does not build yet raises
-    NotImplementedError naming its ROADMAP item."""
+    """Active weights of `cfg`, counted on the meta device (no storage);
+    every family the reference builds."""
     from repro_torch.models.model import Model
     return Model(cfg, device="meta").param_count(active_only=True)
 

@@ -3,11 +3,16 @@ weights, starts the slot-based continuous-batching engine and serves a
 synthetic request stream. Decode stays on the device by default:
 `--decode-chunk K` runs K decode+sample steps per host sync;
 `--host-loop` takes the per-token reference loop; `--kv-dtype int8`
-quantizes the KV cache after prefill (dense and moe archs without a
-sliding window). Serves the dense, moe (mixtral-8x7b, arctic-480b) and
-hybrid (zamba2-2.7b) archs. The synthetic prompts are 4-31 tokens, so
-they meet the Mamba2 rule (a prompt longer than 256 tokens must be a
-multiple of 256). Runs on the card unless `--device cpu` is given.
+quantizes the KV cache after prefill (dense, vlm and moe archs without
+a sliding window). Serves every arch: dense, vlm (internvl2-1b, its 256
+stub patch embeddings before each prompt), moe (mixtral-8x7b,
+arctic-480b), hybrid (zamba2-2.7b), ssm (xlstm-1.3b) and audio
+(whisper-large-v3, its 1500 stub encoder frames). The synthetic prompts
+are 4-31 tokens, so they meet the Mamba2 and mLSTM rule (a prompt longer
+than 256 tokens must be a multiple of 256); a request must fit the cache
+window (n_patches + prompt + max_new - 1 <= --window, the rows it writes,
+else the engine raises).
+Runs on the card unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         [--reduced] [--device cpu] [--slots 4] [--window 1024] \\

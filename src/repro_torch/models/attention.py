@@ -2,8 +2,8 @@
 sliding-window ring cache and the int8 cache (port of
 `repro.models.attention`).
 
-Prefill attention (`attend_train` -> `flash_attention`) is the one caller
-of the flash-attention kernel: a CUDA tensor launches
+Prefill attention (`attend_train` and `cross_attend_train` ->
+`flash_attention`) calls the flash-attention kernel: a CUDA tensor launches
 `csrc/flash_attention.cu` through `kernels.flash_attention.ops` (or
 raises), a CPU tensor runs the blocked pure-torch flash attention of the
 reference (`kernels.flash_attention.kernel.flash_attention_plain`); a
@@ -16,9 +16,16 @@ a prefill's rows so); an int8 cache holds per-token, per-head symmetric
 int8 values with bf16 scales (`quantize_kv`), folded into the scores and
 the weights as the reference does.
 
-Not on this slice's path: the sequence-parallel flash (`_seqpar_flash`,
-`_want_seqpar`, XLA mesh code) and the encoder cross-attention
-(`cross_*`, the audio family).
+The audio family (whisper) attends without rotation: its encoder
+bidirectionally (`attend_train(..., use_rope=False, causal=False)`), its
+decoder causally, and its cross-attention (`cross_attend_train`) against
+the encoder's K/V (`cross_kv`) with `causal=False`, so both launch the
+flash kernel in non-causal mode on CUDA tensors. Cross-attention during
+decode (`cross_decode`) is plain torch, as in the reference. As there,
+the cross-attention projections take no bias.
+
+Not ported: the sequence-parallel flash (`_seqpar_flash`,
+`_want_seqpar`), XLA mesh code with no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -76,10 +83,12 @@ def _project(p, x):
     return q, k, v
 
 
-def _qkv(p, x, cfg, positions):
+def _qkv(p, x, cfg, positions, use_rope=True):
     q, k, v = _project(p, x)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    if use_rope and positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -91,12 +100,43 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                                   kv_len=kv_len)
 
 
-def attend_train(p, x, positions, cfg):
-    """Full causal training/prefill attention. Returns (out (B, S, d), k,
-    v)."""
-    q, k, v = _qkv(p, x, cfg, positions)
-    o = flash_attention(q, k, v, window=cfg.sliding_window)
+def attend_train(p, x, positions, cfg, *, use_rope=True, causal=True):
+    """Full training/prefill attention, causal unless `causal` is False;
+    no rotation with `use_rope=False` or `positions=None`. Returns (out
+    (B, S, d), k, v)."""
+    q, k, v = _qkv(p, x, cfg, positions, use_rope)
+    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return _heads_out(o, p.wo), k, v
+
+
+def cross_kv(p, enc_out):
+    """The encoder output's K and V for cross-attention: (B, F, K, hd)
+    each, no bias (as the reference)."""
+    return _heads_in(enc_out, p.wk), _heads_in(enc_out, p.wv)
+
+
+def cross_attend_train(p, x, enc_kv, cfg):
+    """Decoder cross-attention against precomputed encoder K/V, through
+    the flash kernel in non-causal mode. Returns (B, S, d)."""
+    k, v = enc_kv
+    o = flash_attention(_heads_in(x, p.wq), k, v, causal=False)
+    return _heads_out(o, p.wo)
+
+
+def cross_decode(p, x, cross_k, cross_v):
+    """Cross-attention of one token (B, 1, d) against the static encoder
+    cache (B, F, K, hd), in plain torch: float32 scores from the working
+    dtype's operands, softmax, weights rounded to V's dtype."""
+    B = x.shape[0]
+    q = _heads_in(x, p.wq)
+    H, hd = q.shape[2], q.shape[3]
+    K = cross_k.shape[2]
+    qg = q.reshape(B, K, H // K, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                     cross_k.float()) / math.sqrt(hd)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", w.to(cross_v.dtype), cross_v)
+    return _heads_out(o.reshape(B, 1, H, hd), p.wo)
 
 
 def quantize_kv(k, axis=-1):
@@ -129,16 +169,18 @@ def seed_ring_cache(k, v, window):
     return ck, cv
 
 
-def decode(p, x, cache_k, cache_v, pos, cfg, *, ring=False, scales=None):
+def decode(p, x, cache_k, cache_v, pos, cfg, *, use_rope=True, ring=False,
+           scales=None):
     """x: (B, 1, d); cache_k/v: (B, W, K, hd); pos: (B,) int32 current
     index. Writes the new K/V rows at slot pos % W (`ring`) or
     min(pos, W - 1) into the caches in place and returns (out (B, 1, d),
     cache_k, cache_v[, (ks, vs)]). `scales`: (ks, vs), each (B, W, K)
     bf16, for int8 caches; the new rows are quantized, and the scales
-    multiply the float32 scores and the softmax weights."""
+    multiply the float32 scores and the softmax weights. No rotation with
+    `use_rope=False` (the audio decoder)."""
     B = x.shape[0]
     W = cache_k.shape[1]
-    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    q, k, v = _qkv(p, x, cfg, pos[:, None], use_rope)
     pos = pos.long()
     slot = pos % W if ring else torch.clamp_max(pos, W - 1)
     bidx = torch.arange(B, device=x.device)

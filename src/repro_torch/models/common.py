@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, activations, RoPE and init (port of
-`repro.models.common`).
+"""Shared model building blocks: norms, activations, RoPE, sinusoidal
+positions and init (port of `repro.models.common`).
 
 Weights live in `nn.Module`s whose parameter names follow the keys of the
 reference's parameter dicts ("scale", "wq", "w1", ...), so a reference
@@ -13,8 +13,10 @@ reference's XLA mesh helpers (`sharding_ctx`, `logical_to_pspec`,
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -25,7 +27,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16, "float64": torch.float64}
 
 chunked_softmax_xent = deferred("models.common.chunked_softmax_xent",
-                                "Queue 1 item 13 (training)")
+                                "Queue 1 item 13c (training)")
 
 
 def shard_act(x, *logical_axes):
@@ -120,3 +122,33 @@ def rope(x, positions, theta):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal absolute positions (the audio family's encoder and decoder)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _sinusoids_np(n, d):
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    return np.concatenate([np.sin(ang), np.cos(ang)],
+                          axis=-1).astype(np.float32)
+
+
+def sinusoidal_positions(n, d, device="cpu"):
+    """(n, d) float32 table of positions 0..n-1: computed in numpy float64
+    and cast to float32, as the reference's (prefill uses this one)."""
+    return torch.as_tensor(_sinusoids_np(n, d), device=device)
+
+
+def sinusoid_at(pos, d):
+    """Sinusoidal embedding of integer positions, in float32 on pos's
+    device (decode uses this one). pos: (B,) -> (B, 1, d). Divides by
+    tensors (a CUDA division by a Python number multiplies by its
+    reciprocal)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    expo = i * 2 / i.new_tensor(float(d))
+    ang = pos[:, None].float() / torch.pow(i.new_tensor(10000.0), expo)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, None, :]

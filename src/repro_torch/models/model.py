@@ -1,14 +1,23 @@
-"""Model facade for the dense, moe and hybrid families (port of
-`repro.models.model`).
+"""Model facade for every family (port of `repro.models.model`).
 
 `Model` is an `nn.Module` that holds its weights: the token embedding
 (tied as the unembedding unless `cfg.tie_embeddings` is False), the final
 norm, and in place of the reference's stacked `lax.scan` parameters
   dense   `blocks`: a `ModuleList` of dense blocks;
+  vlm     `blocks` as dense; prefill prepends `batch["patches"]` (B, P, d)
+          to the token embeddings, so positions and `pos` count the P
+          patches (internvl2);
   moe     `blocks`: a `ModuleList` of MoE blocks (mixtral, arctic);
   hybrid  `mamba`: a `ModuleList` of `n_layers` Mamba2 layers, and
           `shared_attn`: ONE dense block applied after every `attn_every`
-          Mamba2 layers, with its own KV cache per application (zamba2).
+          Mamba2 layers, with its own KV cache per application (zamba2);
+  ssm     `mlstm` (n_layers - n_layers // slstm_every mLSTM layers) and
+          `slstm` (n_layers // slstm_every sLSTM layers), run in groups
+          of slstm_every - 1 mLSTM layers and one sLSTM layer (xlstm);
+  audio   `enc` (n_enc_layers encoder blocks) and `enc_norm` over
+          `batch["frames"]` (B, F, d) plus sinusoidal positions, and `dec`
+          (n_layers decoder blocks with cross-attention) over the tokens
+          plus sinusoidal positions (whisper).
 Layers run as a Python loop.
 
 API (the reference's, with the parameters held by the module):
@@ -22,16 +31,19 @@ API (the reference's, with the parameters held by the module):
 
 The cache is a dict of tensors with the batch on axis 1, which decode
 updates in place:
-  dense, moe  {"k", "v"}: (L, B, W, K, hd); under a sliding window a ring
-              of exactly `sliding_window` rows (slot = pos % W), seeded
-              from the prefill's last W positions; with `kv_dtype="int8"`
-              (and no window) int8 values plus {"ksc", "vsc"}: (L, B, W, K)
-              bf16 scales, quantized after prefill;
+  dense, vlm, moe  {"k", "v"}: (L, B, W, K, hd); under a sliding window a
+              ring of exactly `sliding_window` rows (slot = pos % W),
+              seeded from the prefill's last W positions; with
+              `kv_dtype="int8"` (and no window) int8 values plus {"ksc",
+              "vsc"}: (L, B, W, K) bf16 scales, quantized after prefill;
   hybrid      {"conv": (L, B, k-1, cdim), "ssm": (L, B, H, P, N) float32,
-              "k", "v": (L / attn_every, B, W, K, hd)}.
-The ssm (xlstm), audio (whisper) and vlm (internvl2) families raise
-NotImplementedError naming their ROADMAP item, as does training
-(`loss`).
+              "k", "v": (L / attn_every, B, W, K, hd)};
+  ssm         {"mconv": (n_m, B, 3, inner), "mC": (n_m, B, H, Dq, Dv),
+              "mN": (n_m, B, H, Dq), "mM": (n_m, B, H), "sh", "sc", "sn",
+              "sm": (n_s, B, d)}, the states float32, mM and sm from -1e30;
+  audio       {"k", "v": (L, B, W, K, hd), "xk", "xv": (L, B, F, K, hd)},
+              the encoder's K/V per decoder layer, written by prefill.
+Training (`loss`) raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -40,21 +52,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._deferred import deferred
-from repro_torch.models import attention, ssm, transformer as tfm
+from repro_torch.models import attention, ssm, transformer as tfm, xlstm
 from repro_torch.models.common import dense_init, dtype_of, norm, \
-    norm_init, param
+    norm_init, param, sinusoid_at, sinusoidal_positions
 
-_FAMILIES = "Queue 1 item 13b (the ssm, audio and vlm families)"
-KV_FAMILIES = ("dense", "moe")
+KV_FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = KV_FAMILIES + ("hybrid", "ssm", "audio")
+
+
+def xlstm_depths(cfg):
+    """(mLSTM layers, sLSTM layers) of the ssm family: one sLSTM layer
+    per group of `slstm_every`."""
+    n_s = cfg.n_layers // cfg.slstm_every
+    return cfg.n_layers - n_s, n_s
 
 
 class Model(nn.Module):
     def __init__(self, cfg, *, device="cuda", seed=0):
         super().__init__()
-        if cfg.family not in KV_FAMILIES + ("hybrid",):
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported to repro_torch "
-                f"yet (ROADMAP {_FAMILIES})")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         dev = torch.device(device)
         gen = None if dev.type == "meta" else \
@@ -67,6 +84,18 @@ class Model(nn.Module):
             self.mamba = nn.ModuleList(ssm.init(gen, cfg, device=dev)
                                        for _ in range(cfg.n_layers))
             self.shared_attn = tfm.dense_block_init(gen, cfg, device=dev)
+        elif cfg.family == "ssm":
+            n_m, n_s = xlstm_depths(cfg)
+            self.mlstm = nn.ModuleList(xlstm.m_init(gen, cfg, device=dev)
+                                       for _ in range(n_m))
+            self.slstm = nn.ModuleList(xlstm.s_init(gen, cfg, device=dev)
+                                       for _ in range(n_s))
+        elif cfg.family == "audio":
+            self.enc = nn.ModuleList(tfm.enc_block_init(gen, cfg, device=dev)
+                                     for _ in range(cfg.n_enc_layers))
+            self.enc_norm = norm_init(cfg, device=dev)
+            self.dec = nn.ModuleList(tfm.xdec_block_init(gen, cfg, device=dev)
+                                     for _ in range(cfg.n_layers))
         else:
             block = tfm.moe_block_init if cfg.family == "moe" \
                 else tfm.dense_block_init
@@ -76,11 +105,39 @@ class Model(nn.Module):
             self.unembed = param(dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), dt, device=dev))
 
-    loss = deferred("models.model.Model.loss", "Queue 1 item 13 (training)")
+    loss = deferred("models.model.Model.loss", "Queue 1 item 13c (training)")
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    # ------------------------------------------------------------------
+    # what a server needs to know of the family
+    # ------------------------------------------------------------------
+    @property
+    def prefix_rows(self) -> int:
+        """Cache rows and positions that prefill puts before the prompt:
+        the vlm family's patch embeddings."""
+        return self.cfg.n_patches if self.cfg.family == "vlm" else 0
+
+    @property
+    def rows_bounded(self) -> bool:
+        """Whether each position takes a row of a `W`-row cache, so that
+        W bounds a request: not under a ring (it wraps), nor in the ssm
+        family (its state has no rows)."""
+        return self.cfg.family != "ssm" and not self.cfg.sliding_window
+
+    def stub_inputs(self, B: int) -> dict:
+        """The prefill inputs of the stub frontends for a batch of B, zeros
+        in the working dtype as the reference engine makes them: the audio
+        family's `frames` (B, F, d), the vlm family's `patches` (B, P, d)."""
+        cfg = self.cfg
+        n = {"audio": ("frames", cfg.enc_frames),
+             "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+        if n is None:
+            return {}
+        return {n[0]: torch.zeros((B, n[1], cfg.d_model),
+                                  dtype=self.embed.dtype, device=self.device)}
 
     # ------------------------------------------------------------------
     # embedding helpers
@@ -125,6 +182,26 @@ class Model(nn.Module):
                                  torch.float32),
                     "k": zeros((napp, B, W, K, hd), dt),
                     "v": zeros((napp, B, W, K, hd), dt)}
+        if cfg.family == "ssm":
+            inner, nh, hq, hv = xlstm.m_dims(cfg)
+            n_m, n_s = xlstm_depths(cfg)
+            f32 = torch.float32
+            full = lambda shape: torch.full(shape, -1e30, dtype=f32,
+                                            device=self.device)
+            return {"mconv": zeros((n_m, B, 3, inner), dt),
+                    "mC": zeros((n_m, B, nh, hq, hv), f32),
+                    "mN": zeros((n_m, B, nh, hq), f32),
+                    "mM": full((n_m, B, nh)),
+                    "sh": zeros((n_s, B, cfg.d_model), f32),
+                    "sc": zeros((n_s, B, cfg.d_model), f32),
+                    "sn": zeros((n_s, B, cfg.d_model), f32),
+                    "sm": full((n_s, B, cfg.d_model))}
+        if cfg.family == "audio":
+            nf = cfg.enc_frames
+            return {"k": zeros((L, B, W, K, hd), dt),
+                    "v": zeros((L, B, W, K, hd), dt),
+                    "xk": zeros((L, B, nf, K, hd), dt),
+                    "xv": zeros((L, B, nf, K, hd), dt)}
         W = self.kv_window(W)
         if self._int8_kv():
             return {"k": zeros((L, B, W, K, hd), torch.int8),
@@ -142,6 +219,8 @@ class Model(nn.Module):
         tokens = batch["tokens"]
         B = tokens.shape[0]
         h = self._embed(tokens)
+        if cfg.family == "vlm":
+            h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
         S = h.shape[1]
         positions = torch.arange(S, device=h.device).expand(B, S)
         ring = cfg.sliding_window > 0
@@ -172,6 +251,22 @@ class Model(nn.Module):
                     vs.append(v)
             cache = {"conv": torch.stack(convs), "ssm": torch.stack(states),
                      "k": pad_kv(ks), "v": pad_kv(vs)}
+        elif cfg.family == "ssm":
+            h, cache = self._xlstm_prefill(h)
+        elif cfg.family == "audio":
+            enc_out = self._encode(batch["frames"])
+            h = h + sinusoidal_positions(S, cfg.d_model,
+                                         h.device).to(h.dtype)[None]
+            xks, xvs = [], []
+            for blk in self.dec:
+                h, (k, v), (xk, xv) = tfm.xdec_block_apply(
+                    blk, h, enc_out, positions, cfg)
+                ks.append(k)
+                vs.append(v)
+                xks.append(xk)
+                xvs.append(xv)
+            cache = {"k": pad_kv(ks), "v": pad_kv(vs),
+                     "xk": torch.stack(xks), "xv": torch.stack(xvs)}
         else:
             for blk in self.blocks:
                 if cfg.family == "moe":
@@ -197,6 +292,44 @@ class Model(nn.Module):
         pos = torch.full((B,), S, dtype=torch.int32, device=h.device)
         return logits, cache, pos
 
+    def _encode(self, frames):
+        """The audio encoder: frames (B, F, d) plus sinusoidal positions
+        through the bidirectional encoder blocks, then `enc_norm`."""
+        cfg = self.cfg
+        e = frames.to(dtype_of(cfg))
+        e = e + sinusoidal_positions(e.shape[1], cfg.d_model,
+                                     e.device).to(e.dtype)[None]
+        for blk in self.enc:
+            e = tfm.enc_block_apply(blk, e, cfg)
+        return norm(e, self.enc_norm, cfg)
+
+    def _xlstm_groups(self):
+        """(mLSTM layer indices, sLSTM index) of each group."""
+        per = self.cfg.slstm_every - 1
+        return [(range(g * per, (g + 1) * per), g)
+                for g in range(len(self.slstm))]
+
+    def _xlstm_prefill(self, h):
+        convs, Cs, ns, ms, sstates = [], [], [], [], []
+        for mls, g in self._xlstm_groups():
+            for i in mls:
+                y, (cs, (C, n, m)) = xlstm.m_apply(self.mlstm[i], h, self.cfg,
+                                                   return_state=True)
+                h = h + y
+                convs.append(cs)
+                Cs.append(C)
+                ns.append(n)
+                ms.append(m)
+            y, st = xlstm.s_apply(self.slstm[g], h, self.cfg,
+                                  return_state=True)
+            h = h + y
+            sstates.append(st)
+        cache = {"mconv": torch.stack(convs), "mC": torch.stack(Cs),
+                 "mN": torch.stack(ns), "mM": torch.stack(ms)}
+        for j, name in enumerate(("sh", "sc", "sn", "sm")):
+            cache[name] = torch.stack([st[j] for st in sstates])
+        return h, cache
+
     # ------------------------------------------------------------------
     # decode: one token against the cache
     # ------------------------------------------------------------------
@@ -218,6 +351,27 @@ class Model(nn.Module):
                     x, _, _ = tfm.dense_block_decode(
                         self.shared_attn, x, cache["k"][g], cache["v"][g],
                         pos, cfg)
+        elif cfg.family == "ssm":
+            for mls, g in self._xlstm_groups():
+                for i in mls:
+                    y, hist, (C, n, m) = xlstm.m_decode(
+                        self.mlstm[i], x, cache["mconv"][i],
+                        (cache["mC"][i], cache["mN"][i], cache["mM"][i]), cfg)
+                    x = x + y
+                    cache["mconv"][i] = hist
+                    cache["mC"][i], cache["mN"][i], cache["mM"][i] = C, n, m
+                y, st = xlstm.s_decode(
+                    self.slstm[g], x, tuple(cache[name][g] for name in
+                                            ("sh", "sc", "sn", "sm")), cfg)
+                x = x + y
+                for name, t in zip(("sh", "sc", "sn", "sm"), st):
+                    cache[name][g] = t
+        elif cfg.family == "audio":
+            x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
+            for layer, blk in enumerate(self.dec):
+                x, _, _ = tfm.xdec_block_decode(
+                    blk, x, cache["k"][layer], cache["v"][layer],
+                    cache["xk"][layer], cache["xv"][layer], pos, cfg)
         else:
             ring = cfg.sliding_window > 0
             dec = tfm.moe_block_decode if cfg.family == "moe" \

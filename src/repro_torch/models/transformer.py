@@ -1,11 +1,9 @@
-"""Transformer blocks: the dense decoder block (attention plus gated MLP)
-and the MoE decoder block (attention plus the MoE FFN, with arctic's
-parallel dense residual MLP) (port of `repro.models.transformer`).
-Residual wiring and norms live here, attention math in attention.py, MoE
-math in moe.py.
-
-The encoder and cross-attention decoder blocks (the audio family) are
-deferred.
+"""Transformer blocks: the dense decoder block (attention plus gated MLP),
+the MoE decoder block (attention plus the MoE FFN, with arctic's
+parallel dense residual MLP), and the audio family's encoder block
+(bidirectional, no rotation) and decoder block with cross-attention
+(port of `repro.models.transformer`). Residual wiring and norms live
+here, attention math in attention.py, MoE math in moe.py.
 """
 from __future__ import annotations
 
@@ -13,14 +11,9 @@ import math
 
 from torch import nn
 
-from repro_torch._deferred import deferred
 from repro_torch.models import attention, moe
 from repro_torch.models.common import act_fn, dense_init, dtype_of, norm, \
     norm_init, param
-
-_LATER = "Queue 1 item 13b (the audio family)"
-enc_block_init = deferred("models.transformer.enc_block_init", _LATER)
-xdec_block_init = deferred("models.transformer.xdec_block_init", _LATER)
 
 
 # ---------------------------------------------------------------------------
@@ -149,3 +142,64 @@ def moe_block_decode(p, x, ck, cv, pos, cfg, ring=False, scales=None):
     if scales is not None:
         return x + y, ck, cv, out[3]
     return x + y, ck, cv
+
+
+# ---------------------------------------------------------------------------
+# Encoder block (whisper encoder: bidirectional, layernorm + gelu); its
+# parameters are the dense block's
+# ---------------------------------------------------------------------------
+
+def enc_block_init(gen, cfg, device="cuda") -> DenseBlock:
+    return DenseBlock(cfg, gen, device=device)
+
+
+def enc_block_apply(p, x, cfg):
+    a, _, _ = attention.attend_train(p.attn, norm(x, p.n1, cfg), None, cfg,
+                                     use_rope=False, causal=False)
+    x = x + a
+    return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decoder block with cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+class XDecBlock(nn.Module):
+    """n1, attn, n2, xattn, n3, mlp: the reference's cross-attention
+    decoder block parameter dict."""
+
+    def __init__(self, cfg, gen=None, device="cuda"):
+        super().__init__()
+        self.n1 = norm_init(cfg, device=device)
+        self.attn = attention.init(gen, cfg, device=device)
+        self.n2 = norm_init(cfg, device=device)
+        self.xattn = attention.init(gen, cfg, device=device)
+        self.n3 = norm_init(cfg, device=device)
+        self.mlp = mlp_init(gen, cfg, device=device)
+
+
+def xdec_block_init(gen, cfg, device="cuda") -> XDecBlock:
+    return XDecBlock(cfg, gen, device=device)
+
+
+def xdec_block_apply(p, x, enc_out, positions, cfg):
+    """Causal self-attention (no rotation), cross-attention against
+    `enc_out`, MLP. Returns (y, (k, v), (xk, xv))."""
+    a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
+                                     cfg, use_rope=False)
+    x = x + a
+    xk, xv = attention.cross_kv(p.xattn, enc_out)
+    x = x + attention.cross_attend_train(p.xattn, norm(x, p.n2, cfg),
+                                         (xk, xv), cfg)
+    return (x + mlp_apply(p.mlp, norm(x, p.n3, cfg), cfg), (k, v),
+            (xk, xv))
+
+
+def xdec_block_decode(p, x, ck, cv, xk, xv, pos, cfg):
+    """One token: self-attention against the cache (written in place),
+    cross-attention against the static encoder K/V, MLP."""
+    a, ck, cv = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos,
+                                 cfg, use_rope=False)
+    x = x + a
+    x = x + attention.cross_decode(p.xattn, norm(x, p.n2, cfg), xk, xv)
+    return x + mlp_apply(p.mlp, norm(x, p.n3, cfg), cfg), ck, cv

@@ -16,7 +16,7 @@ Each optimizer exposes:
   state_specs(param_specs)           -> logical-axis tree matching state
 
 Adafactor, `make_optimizer` and the training schedules wait for ROADMAP
-Queue 1 item 13 (the model stack's training).
+Queue 1 item 13c (the model stack's training).
 """
 from __future__ import annotations
 
@@ -105,6 +105,6 @@ def adamw(schedule, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     return Optimizer(init, update, state_specs)
 
 
-_TRAINING = "Queue 1 item 13 (model stack, training)"
+_TRAINING = "Queue 1 item 13c (model stack, training)"
 adafactor = deferred("optimizers.adafactor", _TRAINING)
 make_optimizer = deferred("optimizers.make_optimizer", _TRAINING)

@@ -11,6 +11,17 @@ length itself is never padded. Pad rows are dropped by selecting the
 real rows explicitly: the reference gives them an out-of-bounds slot
 index that JAX's scatter ignores, which torch indexing would not.
 
+Every family the model serves goes through the same engine, which asks
+the model what differs: `Model.stub_inputs` gives the prefill's frontend
+inputs (the audio family's `frames`, the vlm family's `patches`, zeros as
+in the reference), `Model.prefix_rows` the cache rows and positions they
+take before the prompt (n_patches). A request must fit its cache: it
+writes n_patches + len(prompt) + max_new_tokens - 1 rows (the last token
+emitted is never fed back), and `submit` raises a ValueError when that
+exceeds the window (the reference clamps the write position instead),
+unless `Model.rows_bounded` is False (a sliding-window ring, the ssm
+family's state).
+
 Decode (`mode="device"`): `Model.decode_loop` runs `decode_chunk` steps
 of decode_step + sampling (greedy and top-k temperature, from the
 engine's `torch.Generator`) with no host sync; finished slots freeze
@@ -156,6 +167,15 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        n_p = self.model.prefix_rows
+        rows = n_p + len(req.prompt) + req.max_new_tokens - 1
+        if self.model.rows_bounded and rows > self.window:
+            raise ValueError(
+                f"request {req.rid}: n_patches + prompt + max_new_tokens - 1"
+                f" = {n_p} + {len(req.prompt)} + {req.max_new_tokens} - 1 "
+                f"cache rows exceed the engine's window {self.window}; "
+                f"admission needs n_patches + prompt + max_new - 1 <= window"
+                f" (a longer request would write past the cache)")
         if (self.mode == "device" and req.temperature > 0
                 and req.top_k > self.top_k_max):
             warnings.warn(
@@ -207,7 +227,8 @@ class ServeEngine:
         if Bp > B:
             toks = np.concatenate(
                 [toks, np.repeat(toks[-1:], Bp - B, axis=0)])
-        batch = {"tokens": self._upload(toks)}
+        batch = {"tokens": self._upload(toks),
+                 **self.model.stub_inputs(toks.shape[0])}
         idx = self._upload(np.array([s for s, _ in items], np.int64))
 
         if self.mode == "device":
@@ -271,7 +292,9 @@ class ServeEngine:
                 self._log_done(req, now)
                 continue
             self.active[slot] = req
-            self._ctx[slot] = len(req.prompt)
+            # one cache row per backbone position: the patches, then the
+            # prompt
+            self._ctx[slot] = len(req.prompt) + self.model.prefix_rows
             self._tok_np[slot, 0] = t
             self._pred[slot] = 1
         if self.telemetry is not None:

@@ -64,6 +64,9 @@ README_ARCHS = ("qwen2-0.5b", "llama3.2-1b")
 # the moe and hybrid archs the model stack now builds (both subquadratic,
 # so both also run long_500k)
 MOE_HYBRID_ARCHS = ("mixtral-8x7b", "zamba2-2.7b")
+# the ssm, audio and vlm archs (xlstm-1.3b is subquadratic, so it also
+# runs long_500k)
+SSM_AUDIO_VLM_ARCHS = ("xlstm-1.3b", "whisper-large-v3", "internvl2-1b")
 README_SCALES = (0.7, 0.85, 1.0, 1.15)
 
 
@@ -148,7 +151,8 @@ def test_roofline_matches_reference():
                               rel=RTOL_ANALYTIC)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_HYBRID_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_HYBRID_ARCHS
+                         + SSM_AUDIO_VLM_ARCHS)
 def test_profiles_match_reference(arch):
     """Every shape of the grid: the parameter count (on the meta device,
     so nothing is allocated) equals the reference's, and every Profile
@@ -218,8 +222,14 @@ def test_profile_demands_units():
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_nondense_arch_raises_naming_item_13(arch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        profile_arch(arch, "decode_32k")
+    """A non-dense arch profiles like the reference (its serving model is
+    ported); what it still lacks, training, raises naming item 13c."""
+    assert_json(dataclasses.asdict(profile_arch(arch, "decode_32k")),
+                dataclasses.asdict(ref_prof.profile_arch(arch,
+                                                         "decode_32k")))
+    from repro_torch.models.model import Model
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        Model(get_config(arch), device="meta").loss({})
 
 
 @pytest.mark.parametrize("arch,active,total", [
@@ -253,6 +263,39 @@ def test_codesign_query_over_moe_and_hybrid(shape):
     assert_report(got, wants)
     assert s.executor.stats["cube_calls"] == 1
     assert len(got.plans) == 2
+
+
+@pytest.mark.parametrize("arch,active", [
+    ("xlstm-1.3b", 2_197_576_016), ("whisper-large-v3", 2_020_628_480),
+    ("internvl2-1b", 493_780_992)])
+def test_ssm_audio_and_vlm_profiles(arch, active):
+    """The parameter count on the meta device is the reference's, and
+    each arch profiles at every shape of its grid (xlstm at long_500k
+    too), equal to the reference's profiles."""
+    cfg = get_config(arch)
+    assert rl.active_params(cfg) == active == \
+        ref_get_config(arch).active_param_count() == cfg.param_count()
+    shapes = [s.name for s in cfg.shapes()]
+    assert ("long_500k" in shapes) == (arch == "xlstm-1.3b")
+    for shape in shapes:
+        assert_json(dataclasses.asdict(profile_arch(arch, shape)),
+                    dataclasses.asdict(ref_prof.profile_arch(arch, shape)))
+
+
+def test_codesign_query_over_ssm_audio_and_vlm():
+    """`CoDesignQuery` over xlstm-1.3b, whisper-large-v3 and internvl2-1b
+    at decode_32k through the port's Session against the reference's, on
+    a small lattice."""
+    s = api.Session(device="cpu")
+    got = s.run(api.CoDesignQuery(
+        tuple(profile_arch(a, "decode_32k") for a in SSM_AUDIO_VLM_ARCHS),
+        api.SweepQuery(**SMALL), vdd_scales=SCALES))
+    wants = ref_runs(lambda: ref_api.Session().run(ref_api.CoDesignQuery(
+        ref_profiles(SSM_AUDIO_VLM_ARCHS), ref_api.SweepQuery(**SMALL),
+        vdd_scales=SCALES)))
+    assert_report(got, wants)
+    assert s.executor.stats["cube_calls"] == 1
+    assert len(got.plans) == 3
 
 
 def test_plan_memory_matches_reference():

@@ -169,6 +169,57 @@ def test_plain_matches_model_flash_bf16():
                                atol=ATOL_BF16)
 
 
+# non-causal (whisper's encoder self-attention and cross-attention),
+# scaled down: (B, Sq, Skv, H, K, hd, bkv of the Pallas kernel, chunk_kv
+# of the plain version); the Pallas wrapper takes non-causal inputs only
+# when its block divides Skv, the plain version at chunk_kv 256 runs
+# Skv = 300 as 256 + 44 keys (as whisper's 1500 frames run as 1024 + 476)
+NONCAUSAL_CASES = [
+    (2, 300, 300, 4, 4, 16, 100, 256),      # encoder: Sq = Skv
+    (2, 24, 150, 4, 4, 16, 50, 1024),       # cross: Sq != Skv
+    (1, 24, 150, 8, 2, 32, 30, 64),         # cross, G = 4, 64 + 64 + 22
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,bkv,ckv", NONCAUSAL_CASES)
+def test_plain_non_causal_matches_pallas_and_model(B, Sq, Skv, H, K, hd, bkv,
+                                                   ckv):
+    """causal=False: every query sees every key below kv_len. Against
+    the Pallas kernel in interpret mode (float32 limit), the naive
+    oracle, and the reference model's flash attention at the same chunks
+    (2e-6), also with kv_len < Skv."""
+    q, k, v = _qkv(Sq * Skv + hd, B, Sq, Skv, H, K, hd)
+    got = kernel.flash_attention_plain(_t(q), _t(k), _t(v), causal=False,
+                                       chunk_kv=ckv)
+    want = ref_fa_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), bq=bkv, bkv=bkv,
+                                      causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+    oracle = attention_ref(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=0,
+                               atol=ATOL_KERNEL_F32)
+    for kv_len in (None, Skv - 7):
+        model = ref_attention.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+            kv_len=kv_len, chunk_kv=ckv)
+        port = attention.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                                         kv_len=kv_len, chunk_kv=ckv)
+        np.testing.assert_allclose(port.numpy(), np.asarray(model), rtol=0,
+                                   atol=ATOL_MODEL_F32)
+    # bf16: p rounded to V's dtype in both
+    bf = jnp.bfloat16
+    model = ref_attention.flash_attention(
+        jnp.asarray(q, bf), jnp.asarray(k, bf), jnp.asarray(v, bf),
+        causal=False, chunk_kv=ckv)
+    port = attention.flash_attention(
+        _t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16),
+        causal=False, chunk_kv=ckv)
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(model, np.float32), rtol=0,
+                               atol=ATOL_BF16)
+
+
 def test_kv_len_masks_what_the_reference_wrapper_pads():
     """q_offset + Sq > Skv: the reference's Pallas wrapper pads KV with
     zero keys and leaves them unmasked; the port masks by kv_len, so its

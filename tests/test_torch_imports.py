@@ -41,6 +41,7 @@ def test_port_has_modules():
                  "configs/llama3_2_1b.py", "models/common.py",
                  "models/attention.py", "models/transformer.py",
                  "models/model.py", "models/moe.py", "models/ssm.py",
+                 "models/xlstm.py",
                  "serving/engine.py",
                  "serving/sampling.py", "runtime/telemetry.py",
                  "launch/serve.py", "core/dse.py", "core/dse_batch.py",

@@ -230,7 +230,9 @@ def test_launcher_serves_on_the_cpu_and_defers_what_is_not_ported(capsys):
                     "--ckpt-dir", "ckpt"])
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b",
+                                  "xlstm-1.3b", "whisper-large-v3",
+                                  "internvl2-1b"])
 def test_launcher_serves_the_moe_and_hybrid_families(arch, capsys):
     assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--requests", "3", "--max-new", "5"]) == 0
@@ -248,6 +250,9 @@ FAMILY_SERVES = {
     "mixtral": ("mixtral-8x7b", {}, (40, 40, 36, 40, 36)),
     "zamba2": ("zamba2-2.7b", {}, (6, 6, 9, 6, 9)),
     "llama-int8": ("llama3.2-1b", {"kv_dtype": "int8"}, PROMPT_LENS),
+    "xlstm": ("xlstm-1.3b", {}, (6, 6, 9, 2, 9)),
+    "whisper": ("whisper-large-v3", {}, PROMPT_LENS),
+    "internvl2": ("internvl2-1b", {}, (6, 6, 9, 6, 38)),
 }
 
 
@@ -290,3 +295,51 @@ def test_engine_serves_only_a_port_model():
         ServeEngine(cfg, {"embed": np.zeros(3)})
     with pytest.raises(ValueError):
         ServeEngine(cfg, Model(cfg, device="cpu"), mode="batch")
+
+
+def test_vlm_positions_count_the_patches(family):
+    """The vlm family's prefill puts its patches before the prompt, so a
+    slot's pos and its host-tracked context both start at n_patches +
+    len(prompt), in both modes; other families' at len(prompt)."""
+    ref_cfg, params, cfg, model, prompts = family
+    n_p = cfg.n_patches if cfg.family == "vlm" else 0
+    for mode in ("device", "host"):
+        eng = ServeEngine(cfg, model, n_slots=N_SLOTS, window=48, mode=mode,
+                          decode_chunk=CHUNK)
+        for i, p in enumerate(prompts[:N_SLOTS]):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        eng._admit()
+        want = [len(p) + n_p for p in prompts[:N_SLOTS]]
+        if cfg.family != "ssm":
+            assert eng._ctx == want
+        assert eng.pos.tolist() == want
+
+
+def test_window_rule(family):
+    """A request writes n_patches + prompt + max_new - 1 cache rows (the
+    last token emitted is never fed back): one that fills the window
+    exactly is served, token for token as the reference engine serves it
+    (chunked decode, so the finished slot's frozen steps run too), and
+    one more prompt or new token is refused at submit, naming the rule.
+    A ring cache and the ssm family's state take any length."""
+    ref_cfg, params, cfg, model, _ = family
+    W = 24
+    kw = dict(n_slots=N_SLOTS, window=W, decode_chunk=CHUNK)
+    eng = ServeEngine(cfg, model, **kw)
+    if not model.rows_bounded:
+        eng.submit(Request(rid=0, prompt=np.zeros(40, np.int32),
+                           max_new_tokens=8))
+        assert len(eng.queue) == 1
+        return
+    rng = np.random.default_rng(2)
+    fits = rng.integers(0, cfg.vocab_size,
+                        W - model.prefix_rows - MAX_NEW + 1).astype(np.int32)
+    got = _serve(eng, Request, [fits])
+    assert got == _serve(RefEngine(ref_cfg, params, **kw), RefRequest, [fits])
+    assert len(got[0]) == MAX_NEW
+    for prompt, max_new in ((np.append(fits, 0), MAX_NEW),
+                            (fits, MAX_NEW + 1)):
+        with pytest.raises(ValueError,
+                           match="n_patches \\+ prompt \\+ max_new"):
+            eng.submit(Request(rid=1, prompt=prompt, max_new_tokens=max_new))
+    assert not eng.queue

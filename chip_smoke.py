@@ -160,6 +160,30 @@ Phases:
      internvl2 in float32 on the card against the CPU (streams equal in
      device and host mode, logits within 2e-5), and `CoDesignQuery` over
      the three archs (held to the CPU session, store replay, warm wall);
+ 11d. the training path: the flash-attention autograd Function (forward
+     the kernel, counted; backward plain torch) against autograd through
+     the plain version at llama's training shape (B = 1, S = 4096),
+     whisper's cross shape (non-causal, 128 x 1500) and mixtral's
+     windowed one (B = 1, hd = 128, window 4096, S = 5120), bf16 and
+     float32; a direct kernel launch with inputs that require grad
+     raises; every arch's reduced float32 config, loss and every
+     gradient leaf on the card against the port's CPU run; the reduced
+     llama trainer on the card, 12 steps uninterrupted against preempted
+     at step 7, its step-7 checkpoint removed and resumed from step 6,
+     final states bit-identical, the trajectory held to the CPU run, the
+     card's checkpoint restored on the CPU equal; full-width llama3.2-1b
+     (bf16 over float32 master, AdamW, cosine, remat "full", train_4k's
+     4,096 tokens at a global batch of 8 in 2 microbatches) trained 8
+     steps with the counters at 0 just before it: 64 tensor-core flash
+     launches and no float32 one a step, the loss finite and lower at
+     the last step than at the first, an async checkpoint at step 4 and
+     a final one; its warm step wall, tokens/s, model-FLOPs share of the
+     bf16 peak, peak memory and telemetry profile; one more step under
+     the profiler (idle share, the Function's forward and backward
+     device ms); `launch.serve --ckpt-dir` on its checkpoint, 4 greedy
+     streams equal to a `Model` holding the trained params'; the forward
+     kernel at llama's training shape (B = 4) and the Function's
+     backward beside SDPA's;
  12. drive co-design, the runtime loop, the compile service and the
      fleet, each with the counters at 0 just before it:
      `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
@@ -215,8 +239,9 @@ Phases:
      scan kernel's device ms in it;
  14. print a {"kernels": [...]} JSON line (the scan row also carries the
      gradient path's launches; every row carries phase 12's, by part; the
-     flash rows carry phase 11b's and 11c's, the non-causal launches and
-     errors apart, and their times at the new shapes), the
+     flash rows carry phase 11b's, 11c's and 11d's, the non-causal
+     launches and errors apart, and their times at the new shapes, the
+     training shape and the Function's backward), the
      smoke's total wall, the card line, and as the last line {"ok": true,
      "device": {...}}.
 
@@ -3204,6 +3229,463 @@ def time_scan(dev, group, banks, card) -> dict:
 # the four dense archs of benchmarks/bench_fleet.py's full workload; the
 # README's co-design quickstart takes the first two (default lattice and
 # vdd ladder in both queries)
+# -- the training path (phase 11d): Model.loss under autograd, the flash
+# kernel's Function, the trainer and its checkpoints, serve from them
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_SEQ = 4096                # train_4k's sequence
+TRAIN_BATCH = 8                 # train_4k's global batch of 256, cut to 8
+TRAIN_MICRO = 2                 # microbatches of 4
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4            # the async checkpoint at step 4
+TRAIN_WEIGHTS = 1_235_814_400
+# flash launches of one full-width step: microbatches x layers x 2 (the
+# forward, and remat="full"'s recompute in the backward)
+TRAIN_LAUNCHES_PER_STEP = TRAIN_MICRO * 16 * 2
+TRAIN_FLASH_SHAPE = (4, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64, 0, None)
+# the Function against autograd through the plain version on the card:
+# llama's training shape at B = 1, whisper's cross-attention (non-causal,
+# 128 queries to 1500 frames), mixtral's windowed shape at B = 1
+FUNC_SHAPES = ((1, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64, 0, None, 0, True),
+               (2, 128, 1500, 20, 20, 64, 0, None, 0, False),
+               (1, 5120, 5120, 32, 8, 128, 0, None, 4096, True))
+# gradient limits, relative to each input's largest gradient: float32,
+# the same tiles and algebra with sums in other orders (the CPU test
+# against jax.grad measured 6.6e-7 at 1e-5); bfloat16, the kernel's
+# output against the plain one (within 2^-6, FLASH_BF16_RTOL) enters
+# D = rowsum(dO * O), and autograd through the plain version rounds the
+# gradient of p to bf16 where the backward keeps float32, so one part in
+# 32
+FUNC_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -5}
+# reduced configs, card vs CPU, float32: the CPU parity limits
+# (tests/test_torch_training.py) of the loss and each gradient leaf
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+REDUCED_SHAPE = (64, 4)         # (seq_len, global_batch), the CPU tests'
+REDUCED_STEPS, REDUCED_PREEMPT, REDUCED_CKPT_EVERY = 12, 7, 6
+# the reduced trainer's trajectory, card vs CPU: losses relative, final
+# parameters relative to each leaf's largest (AdamW's eps 1e-8 bounds
+# what a gradient that float32 rounding flips can move)
+TRAJ_LOSS_RTOL, TRAJ_PARAM_RTOL = 1e-5, 1e-4
+TRAIN_SERVE_REQUESTS, TRAIN_SERVE_NEW = 4, 16
+
+
+def check_flash_function(dev) -> dict:
+    """The flash Function's dq, dk, dv on the card (forward: the kernel of
+    the dtype, counted; backward: plain torch) against autograd through
+    `flash_attention_plain` on the same inputs, at `FUNC_SHAPES`, in
+    bfloat16 and float32. Returns the largest relative error by dtype and
+    the forward launches by dtype."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    worst = {}
+    launched = {torch.bfloat16: 0, torch.float32: 0}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst[dtype] = 0.0
+        for shape in FUNC_SHAPES:
+            q, k, v = flash_inputs(shape, dtype, dev)
+            off, kv_len, window, causal = flash_args(shape)
+            gen = torch.Generator(device=dev).manual_seed(SEED + shape[1])
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            ins = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = flash_counts()
+            o = fa_ops.flash_attention(*ins, off, bq=512, bkv=1024,
+                                       causal=causal, window=window)
+            after = flash_counts()
+            has_fn = o.grad_fn is not None
+            got = torch.autograd.grad(o, ins, do)
+            launched[dtype] += after[dtype] - before[dtype]
+            ref_in = [x.clone().requires_grad_() for x in (q, k, v)]
+            o_ref = flash_attention_plain(*ref_in, q_offset=off,
+                                          window=window, causal=causal)
+            want = torch.autograd.grad(o_ref, ref_in, do)
+            torch.cuda.synchronize()
+            errs = [float((g.float() - w.float()).abs().max()
+                          / w.float().abs().max()) for g, w in zip(got, want)]
+            ok = (has_fn and after[dtype] == before[dtype] + 1
+                  and all(bool(torch.isfinite(g).all()) for g in got)
+                  and max(errs) <= FUNC_RTOL[dtype])
+            log(f"check flash Function backward {str(dtype)[6:]} (B, Sq, "
+                f"Skv, H, K, hd, q_offset, kv_len, window, causal) = "
+                f"{shape}: dq, dk, dv vs autograd through the plain version "
+                f"{errs!r} of the largest (limit {FUNC_RTOL[dtype]!r}), "
+                f"grad_fn {type(o.grad_fn).__name__}, forward launches "
+                f"{after[dtype] - before[dtype]} {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"flash Function check {shape} failed")
+            worst[dtype] = max(worst[dtype], max(errs))
+            del q, k, v, do, ins, o, got, ref_in, o_ref, want
+            torch.cuda.empty_cache()
+    # a direct launch with inputs that require grad raises
+    from repro_torch.kernels.flash_attention import kernel
+    q, k, v = flash_inputs((1, 64, 64, 4, 2, 64), torch.bfloat16, dev)
+    kern, args = kernel.route(q, k, v)
+    try:
+        kern(q.requires_grad_(), k, v, args)
+        raised = False
+    except RuntimeError:
+        raised = True
+    log(f"check a direct flash_attention_tc launch with q requiring grad "
+        f"raises: {raised} {'ok' if raised else 'FAILED'}")
+    if not raised:
+        raise RuntimeError("a direct kernel launch returned a detached "
+                           "tensor")
+    return {"worst": worst, "launches": launched}
+
+
+def time_flash_backward(dev, card) -> dict:
+    """At llama's training shape (B = 4, S = 4096, bf16): the forward
+    kernel (time_flash_shapes: events, device, plain, SDPA, bound), then
+    the backward alone, the Function's (plain torch, tiled) against
+    SDPA's, each by CUDA events over `autograd.grad` on one saved graph."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    fwd = time_flash_shapes(dev, card, (TRAIN_FLASH_SHAPE,), torch.bfloat16,
+                            "flash_attention_tc_kernel")
+    q, k, v = (x.requires_grad_() for x in flash_inputs(
+        TRAIN_FLASH_SHAPE, torch.bfloat16, dev))
+    do = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+    o = fa_ops.flash_attention(q, k, v, bq=512, bkv=1024)
+    ours = lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                      retain_graph=True)
+    b1, l1 = time_ms(ours, 3, warm=1), time_ms(lib, 10)
+    b2, l2 = time_ms(ours, 3, warm=1), time_ms(lib, 10)
+    out = {"fwd": fwd["mix"], "bwd_ms": (b1 + b2) / 2,
+           "sdpa_bwd_ms": (l1 + l2) / 2}
+    log(f"time flash Function backward bf16 {TRAIN_FLASH_SHAPE[:6]}: "
+        f"{b1!r} / {b2!r} ms (plain torch, tiled), "
+        f"scaled_dot_product_attention backward {l1!r} / {l2!r} ms "
+        f"(library reference, not a port; ours / SDPA "
+        f"{out['bwd_ms'] / out['sdpa_bwd_ms']!r}) [{card}]")
+    del q, k, v, o, o_lib, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_grads(cfg, tree, batch, dev):
+    """(loss, {path: grad}) of `Model.loss` for the stacked float32 tree
+    and batch (numpy), on `dev`."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    t = tree_map(lambda a: a.to(dev).requires_grad_(), tree)
+    loss, _ = Model(cfg, device="meta").loss(
+        {k: torch.as_tensor(x, device=dev) for k, x in batch.items()},
+        params=t)
+    loss.backward()
+    return float(loss.detach()), {p: x.grad.cpu()
+                                  for p, x in tree_leaves(t, paths=True)}
+
+
+def reduced_models_card_vs_cpu(dev) -> int:
+    """Every arch's reduced float32 config: the loss and every gradient
+    leaf on the card against the port's CPU run of the same weights and
+    batch. Returns the float32 flash launches (the card's forwards)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model, param_tree
+    S, B = REDUCED_SHAPE
+    before = flash_counts()[torch.float32]
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        tree = param_tree(Model(cfg, device="cpu", seed=SEED))
+        batch = SyntheticLMData(cfg.vocab_size, S, B, family=cfg.family,
+                                d_model=cfg.d_model,
+                                enc_frames=cfg.enc_frames,
+                                n_patches=cfg.n_patches).batch_at(0)
+        l_card, g_card = reduced_grads(cfg, tree, batch, dev)
+        l_cpu, g_cpu = reduced_grads(cfg, tree, batch, "cpu")
+        rel = {p: float((g_card[p] - g_cpu[p]).abs().max()
+                        / g_cpu[p].abs().max()) for p in g_cpu}
+        worst = max(rel, key=rel.get)
+        finite = all(bool(torch.isfinite(g).all()) and float(g.abs().max())
+                     > 0 for g in g_card.values())
+        lrel = abs(l_card - l_cpu) / abs(l_cpu)
+        ok = finite and lrel <= TRAIN_LOSS_RTOL \
+            and rel[worst] <= TRAIN_GRAD_RTOL
+        log(f"check reduced {arch} loss and gradients, card vs CPU: loss "
+            f"{l_card!r} vs {l_cpu!r} (rel {lrel!r}, limit "
+            f"{TRAIN_LOSS_RTOL}), worst gradient leaf {worst} {rel[worst]!r}"
+            f" of its largest (limit {TRAIN_GRAD_RTOL}), every gradient "
+            f"finite and nonzero: {finite} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"reduced {arch} card vs CPU failed")
+    return flash_counts()[torch.float32] - before
+
+
+def reduced_trainer(dev, root) -> dict:
+    """Reduced llama trained for 12 steps on the card uninterrupted, and
+    again preempted at step 7, its step-7 checkpoint removed and resumed
+    from step 6: the final states bit for bit; the trajectory against the
+    CPU run; the card's checkpoint restored on the CPU, equal."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.training import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                              dtype="float32")
+    shape = ShapeConfig("reduced_train", *REDUCED_SHAPE, "train")
+
+    def trainer(d, device, **kw):
+        tr = Trainer(cfg, shape, TrainConfig(
+            total_steps=REDUCED_STEPS, ckpt_every=REDUCED_CKPT_EVERY,
+            ckpt_dir=str(root / d), log_every=100, log_fn=lambda *a: None,
+            device=device, **kw))
+        # every run starts from the CPU init (a CUDA generator draws
+        # other numbers)
+        tr.init_state = lambda: tree_map(lambda t: t.to(device), init)
+        return tr
+
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.model import Model
+    init = build_train(cfg).init_state(Model(cfg, device="cpu", seed=0))
+
+    st_a, hist_a = trainer("a", dev).run()
+    trainer("b", dev, preempt_at=REDUCED_PREEMPT).run()
+    shutil.rmtree(root / "b" / f"step_{REDUCED_PREEMPT:09d}")
+    resumed = trainer("b", dev)
+    st_b, hist_b = resumed.run()
+    same = all(torch.equal(x, y) for x, y in
+               zip(tree_leaves(st_a), tree_leaves(st_b)))
+    same_losses = all(h["loss"] == {g["step"]: g["loss"] for g in hist_a}[
+        h["step"]] for h in hist_b)
+    st_c, hist_c = trainer("c", "cpu").run()
+    lrel = max(abs(a["loss"] - c["loss"]) / abs(c["loss"])
+               for a, c in zip(hist_a, hist_c))
+    prel = max(float((x.cpu() - y).abs().max() / y.abs().max())
+               for x, y in zip(tree_leaves(st_a["params"]),
+                               tree_leaves(st_c["params"])))
+    step = latest_step(str(root / "a"))
+    on_cpu = restore_checkpoint(str(root / "a"), step,
+                                resumed.bundle.state_like(), device="cpu")
+    restored = all(torch.equal(x, y.cpu()) for x, y in
+                   zip(tree_leaves(on_cpu), tree_leaves(st_a)))
+    ok = (same and same_losses and resumed.stats["restored_step"] == 6
+          and lrel <= TRAJ_LOSS_RTOL and prel <= TRAJ_PARAM_RTOL
+          and restored and len(hist_a) == REDUCED_STEPS)
+    log(f"check reduced {TRAIN_ARCH} trainer on the card: {REDUCED_STEPS} "
+        f"steps uninterrupted vs preempted at {REDUCED_PREEMPT} and resumed "
+        f"from step {resumed.stats['restored_step']}: final states bit-"
+        f"identical {same}, overlapping losses equal {same_losses}; "
+        f"trajectory vs the CPU run: losses {lrel!r} (limit "
+        f"{TRAJ_LOSS_RTOL}), final parameters {prel!r} of each leaf's "
+        f"largest (limit {TRAJ_PARAM_RTOL}); step-{step} checkpoint "
+        f"restored on the CPU equal {restored}; losses "
+        f"{[h['loss'] for h in hist_a]!r} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("reduced trainer check failed")
+    return {"steps": len(hist_a)}
+
+
+def profile_train_step(step_fn, state, batch) -> dict:
+    """One warm train step under torch.profiler: the wall, the device
+    busy time (device-side events), the idle share, and the flash
+    Function's forward (the kernel's device time) and backward (the
+    device time under its autograd node) in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = fwd = 0.0
+    bwd, kernels = [], []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += dev_us / 1e3
+            kernels.append((dev_us / 1e3, ev.count, ev.key[:60]))
+            if "flash_attention_tc_kernel" in ev.key:
+                fwd += dev_us / 1e3
+        elif "FlashAttentionBackward" in ev.key:
+            bwd.append(getattr(ev, "device_time_total",
+                               getattr(ev, "cuda_time_total", 0.0)) / 1e3)
+    del out
+    return {"top": sorted(kernels, reverse=True)[:8],
+            "wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "flash_fwd_ms": fwd,
+            "flash_bwd_ms": max(bwd) if bwd else None}
+
+
+def train_full_width(dev, root, card) -> dict:
+    """llama3.2-1b at full width and depth, bf16 over float32 master
+    params, AdamW, cosine, remat "full", train_4k's 4,096 tokens at a
+    global batch of 8 in 2 microbatches: 8 steps with an async
+    checkpoint at step 4 and a final one, the flash launches of each
+    step counted (the counts set to 0 just before the run), the loss
+    finite at every step and lower at the last than at the first; its
+    warm step wall, tokens/s, model-FLOPs share, peak memory, telemetry
+    profile; one more step under the profiler."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.runtime import TelemetryCollector
+    from repro_torch.runtime.profile import measured_profile
+    from repro_torch.training import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    col = TelemetryCollector()
+    tr = Trainer(cfg, shape, TrainConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        ckpt_dir=str(root / "full"), keep_last=2, log_every=1,
+        microbatches=TRAIN_MICRO, telemetry=col, device="cuda",
+        log_fn=lambda m: log(f"  train {TRAIN_ARCH}: {m}")))
+    per_step = []
+    step_fn = tr.step_fn
+
+    def counted_step(state, batch):
+        before = flash_counts()
+        out = step_fn(state, batch)
+        after = flash_counts()
+        per_step.append({d: after[d] - before[d] for d in after})
+        return out
+    tr.step_fn = counted_step
+    saves = []
+    for name in ("save", "save_async"):
+        def timed_save(step, tree, _fn=getattr(tr.ckpt, name), _name=name):
+            t0 = time.perf_counter()
+            _fn(step, tree)
+            saves.append((_name, step, time.perf_counter() - t0))
+        setattr(tr.ckpt, name, timed_save)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = tr.run()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    walls = [h["time_s"] for h in hist[1:]]
+    wall = statistics.median(walls)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * TRAIN_WEIGHTS * tokens / (wall * BF16_FLOPS)
+    prof = measured_profile(col.snapshot(), cfg)
+    ok = (len(hist) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(c[torch.bfloat16] == TRAIN_LAUNCHES_PER_STEP
+                  and c[torch.float32] == 0 for c in per_step)
+          and counts["flash_attention_tc"] == TRAIN_STEPS
+          * TRAIN_LAUNCHES_PER_STEP and counts["flash_attention_f32"] == 0)
+    log(f"train path: {TRAIN_ARCH} full width ({tr.bundle.model.param_count()}"
+        f" weights), bf16 over float32 master, AdamW, cosine, remat "
+        f"{cfg.remat}, S={TRAIN_SEQ}, global batch {TRAIN_BATCH} in "
+        f"{TRAIN_MICRO} microbatches, {TRAIN_STEPS} steps in {run_s!r} s "
+        f"(checkpoints included); losses {losses!r}; tensor-core flash "
+        f"launches per step {[c[torch.bfloat16] for c in per_step]} "
+        f"(expected {TRAIN_LAUNCHES_PER_STEP}), float32 "
+        f"{[c[torch.float32] for c in per_step]}; launch counters "
+        f"{counts}; checkpoint calls (kind, step, s in the loop; an async "
+        f"save's is its host copy) {saves!r} {'ok' if ok else 'FAILED'}")
+    log(f"time train step {TRAIN_ARCH}: warm step walls {walls!r} s, median "
+        f"{wall!r} s, {tokens / wall!r} tokens/s, model-FLOPs share of the "
+        f"bf16 dense peak 6*N*tokens/(wall*989 TFLOP/s) {mfu!r}, "
+        f"torch.cuda.max_memory_allocated {peak} bytes "
+        f"({peak / 2**30!r} GiB) [{card}]")
+    log(f"train telemetry measured_profile (kind {prof.kind}): "
+        f"{dataclasses.asdict(prof)}")
+    if not ok:
+        raise RuntimeError("full-width train path failed")
+    # one more step under the profiler, on the final state
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as steps_mod
+    batch = steps_mod.to_device(SyntheticLMData(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch_at(TRAIN_STEPS), dev)
+    prof_step = profile_train_step(step_fn, state, batch)
+    log(f"profile train step {TRAIN_ARCH}: wall {prof_step['wall_ms']!r} ms "
+        f"under the profiler, device busy {prof_step['busy_ms']!r} ms, idle "
+        f"share {prof_step['idle_share']!r}; flash Function forward "
+        f"(kernel) {prof_step['flash_fwd_ms']!r} ms, backward (plain torch) "
+        f"{prof_step['flash_bwd_ms']!r} ms of device time; the device "
+        f"kernels with the most time (ms, calls, name): "
+        f"{prof_step['top']!r} [{card}]")
+    params = state["params"]
+    del state, batch, tr
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_attention_tc"], "per_step":
+            TRAIN_LAUNCHES_PER_STEP, "wall": wall, "mfu": mfu, "peak": peak,
+            "profile": prof_step, "params": params, "cfg": cfg,
+            "losses": losses}
+
+
+def serve_from_checkpoint(dev, root, trained) -> None:
+    """`launch.serve --ckpt-dir` on the full-width run's checkpoint, 4
+    greedy requests, against a `Model` holding the trained params (the
+    final state's master cast to each weight's working dtype) serving the
+    same requests: equal streams."""
+    from repro_torch import interop
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, ServeEngine
+    cfg = trained["cfg"]
+    out = root / "serve_ckpt.jsonl"
+    argv = ["--arch", TRAIN_ARCH, "--ckpt-dir", str(root / "full"),
+            "--requests", str(TRAIN_SERVE_REQUESTS), "--max-new",
+            str(TRAIN_SERVE_NEW), "--greedy", "--output", str(out)]
+    rc = serve.main(argv)
+    got = {r["rid"]: r["tokens"] for r in map(json.loads,
+                                               out.read_text().splitlines())}
+    torch.cuda.empty_cache()
+    dtypes = interop.param_dtypes(cfg)
+    cast = interop.tree_map(lambda t, d: t.to(d), trained["params"], dtypes)
+    model = interop.model_params_from_numpy(cfg, cast, device=dev)
+    del cast
+    eng = ServeEngine(cfg, model, n_slots=4, window=1024, mode="device",
+                      decode_chunk=8)
+    rng = np.random.default_rng(0)
+    for i in range(TRAIN_SERVE_REQUESTS):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, rng.integers(4, 32)).astype(np.int32),
+            max_new_tokens=TRAIN_SERVE_NEW, temperature=0.0))
+    done, _ = eng.run()
+    want = {r.rid: [int(t) for t in r.out_tokens] for r in done}
+    ok = rc == 0 and got == want and len(got) == TRAIN_SERVE_REQUESTS
+    log(f"check serve --ckpt-dir (step {latest_step(str(root / 'full'))}) "
+        f"{TRAIN_SERVE_REQUESTS} greedy requests vs a Model holding the "
+        f"trained params: streams equal {got == want} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("serve from the checkpoint failed")
+    del model, eng
+    torch.cuda.empty_cache()
+
+
+def train_path(dev, card) -> dict:
+    """Phase 11d: the flash Function's gradients, the reduced models and
+    trainer card vs CPU, the full-width train run, serve from its
+    checkpoint, and the Function's backward timing."""
+    root = ROOT / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    usage = shutil.disk_usage(root)
+    log(f"train path: checkpoints under {root}, {usage.free / 2**30!r} GiB "
+        f"free on its disk")
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+    func = timed("function checks", check_flash_function, dev)
+    reduced_f32 = timed("reduced card vs CPU", reduced_models_card_vs_cpu,
+                        dev)
+    timed("reduced trainer", reduced_trainer, dev, root)
+    full = timed("full width", train_full_width, dev, root, card)
+    timed("serve from checkpoint", serve_from_checkpoint, dev, root, full)
+    full.pop("params")
+    times = timed("backward timing", time_flash_backward, dev, card)
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"train path walls (s): {walls!r}")
+    return {**full, "func": func, "reduced_f32_launches": reduced_f32,
+            "times": times}
+
+
 CODESIGN_ARCHS = ("qwen2-0.5b", "llama3.2-1b", "llama3.2-3b", "minicpm-2b")
 README_ARCHS = CODESIGN_ARCHS[:2]
 CODESIGN_SHAPE = "decode_32k"
@@ -4096,6 +4578,14 @@ def main() -> int:
     family_11c_launches = family_cpu_parity(dev, FAMILY_11C_CPU_CASES)
     codesign_path(card, labels=("ssm, audio and vlm archs",))
 
+    phase("11d")
+    # -- 11d. the training path: the flash Function's gradients against
+    # autograd through the plain version, every reduced arch's loss and
+    # gradients card vs CPU, the reduced trainer's bit-identical restart,
+    # full-width llama3.2-1b trained 8 steps (counted) with its
+    # checkpoints, serve from the checkpoint, the backward's timing
+    trained = train_path(dev, card)
+
     phase("12")
     # -- 12. co-design, the measured loop at full width, the compile
     # service and the fleet on the card, each counted and held to the CPU;
@@ -4234,6 +4724,25 @@ def main() -> int:
         vlm_launches=served_vlm["launches"],
         ssm_launches=served_ssm["launches"],
         max_abs_err_noncausal=fa_err[torch.bfloat16, "noncausal"])
+    # phase 11d: the training launches (64 a full-width step, forward
+    # and remat recompute), the Function's gradient checks, the forward
+    # at llama's training shape and the Function's backward beside
+    # SDPA's (a library reference, not a port)
+    tf = trained["times"]["fwd"]
+    rows["flash_attention_tc"].update(
+        train_launches=trained["launches"],
+        train_launches_per_step=trained["per_step"],
+        train_grad_max_rel_err=trained["func"]["worst"][torch.bfloat16],
+        train_shape={f: tf[f] for f in ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by")},
+        train_function_bwd_ms=trained["times"]["bwd_ms"],
+        train_sdpa_bwd_ms=trained["times"]["sdpa_bwd_ms"],
+        train_step_device_fwd_ms=trained["profile"]["flash_fwd_ms"],
+        train_step_device_bwd_ms=trained["profile"]["flash_bwd_ms"])
+    rows["flash_attention"].update(
+        train_reduced_launches=trained["reduced_f32_launches"],
+        train_grad_max_rel_err=trained["func"]["worst"][torch.float32])
     rows["flash_attention"].update(
         family_cpu_parity_launches=family_launches,
         family_11c_cpu_parity_launches=family_11c_launches,
@@ -4257,7 +4766,9 @@ def main() -> int:
                           served_audio, served_vlm)) \
             or served_moe["windowed"] <= 0 or family_launches <= 0 \
             or served_ssm["launches"] != 0 or family_11c_launches <= 0 \
-            or served_audio["noncausal"] != 64 * served_audio["prefills"]:
+            or served_audio["noncausal"] != 64 * served_audio["prefills"] \
+            or trained["launches"] != TRAIN_STEPS * TRAIN_LAUNCHES_PER_STEP \
+            or trained["reduced_f32_launches"] <= 0:
         log("FAILED: a kernel of a path was never launched")
         return 1
     log(f"smoke total wall: {time.perf_counter() - t_smoke!r} s [{card}]")

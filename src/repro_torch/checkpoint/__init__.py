@@ -1,0 +1,7 @@
+"""Port of `repro.checkpoint`: step-atomic, async checkpoints in the
+reference's on-disk layout."""
+from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
+                                         restore_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint",
+           "latest_step"]

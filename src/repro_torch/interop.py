@@ -3,7 +3,17 @@
 The reference's state arrives as numpy arrays and plain dicts (never as
 its own objects: the port does not import it), and leaves here as the
 port's dataclasses and tensors, so a test can feed both packages the
-same inputs.
+same inputs; model weights and training states also go back the other
+way (`model_params_to_numpy`, `train_state_to_numpy`).
+
+A model's parameters in the reference's layout are a STACKED tree
+(`param_tree`, which lives with the model in `models.model`, as does
+`stack_depths`): "embed", "final_norm", ["unembed"], and per family the
+layer stacks of `stack_depths`, each leaf of a stack carrying a leading
+layer axis of the stack's depth. The trainer's state is that tree in
+float32 (the master) with the optimizer's moments of the same shapes and
+a 0-d int32 "step", so it maps one to one onto the reference's
+`{"params", "opt", "step"}` and onto the checkpoint layout.
 """
 from __future__ import annotations
 
@@ -15,6 +25,8 @@ from repro_torch.core.spice.mna import MNASystem
 from repro_torch.core.techfile import SYN40, DeviceFlavor, TechFile
 from repro_torch.kernels.batched_solve.newton import FusedSpec
 from repro_torch.kernels.batched_solve.sparse import PRECISIONS
+from repro_torch.models.model import param_tree, stack_depths
+from repro_torch.optim.optimizers import tree_map
 
 _SPEC_ARRAYS = ("um", "vm", "pa", "pg", "g_safe", "a_safe", "b_safe")
 
@@ -76,11 +88,48 @@ def mna_system_from_numpy(G, C, dev: dict, didx: dict, src_node, src_wave,
                      list(names))
 
 
+def param_dtypes(cfg) -> dict:
+    """The working dtype of every leaf of the stacked tree: the config's
+    dtype, float32 for the MoE router, the Mamba2 A_log, D and dt_bias,
+    and the xLSTM gates' w_if, b_if and b (as the reference's init)."""
+    from repro_torch.models.model import Model
+    return tree_map(lambda t: t.dtype, param_tree(Model(cfg,
+                                                        device="meta")))
+
+
+def _to_numpy(t) -> np.ndarray:
+    """A tensor as numpy; bfloat16 (which numpy lacks) as float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def model_params_to_numpy(model) -> dict:
+    """The inverse of `model_params_from_numpy`: the model's weights as
+    the reference's stacked numpy tree (bfloat16 weights as float32)."""
+    return tree_map(_to_numpy, param_tree(model))
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """A training state {"params", "opt", "step"} of tensors as the
+    reference's numpy tree: the same keys and shapes, the step a 0-d
+    int32 array."""
+    return tree_map(_to_numpy, state)
+
+
+def train_state_from_numpy(tree: dict, device="cuda") -> dict:
+    """The reference's training state {"params", "opt", "step"} as numpy
+    (`jax.tree.map(np.asarray, state)`) -> the port's, tensors of the
+    same dtypes on `device` (the step a 0-d int32 tensor)."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a)).to(device),
+                    tree)
+
+
 def model_params_from_numpy(cfg, tree: dict, device="cuda"):
     """The port's `Model` holding the reference's weights.
 
     tree: the reference's parameter tree as numpy
-    (`jax.tree.map(np.asarray, params)`): "embed", "final_norm",
+    (`jax.tree.map(np.asarray, params)`), or the same tree of tensors
+    (`param_tree`, a checkpoint's "params"): "embed", "final_norm",
     ["unembed"], and the layer stacks, every leaf stacked over a leading
     layer axis of the stack's own depth: "blocks" (dense, vlm and moe,
     n_layers; a moe block holds "moe" {router, w1, w3, w2} and, for
@@ -94,20 +143,17 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
     w_if, b_if and b, as in the reference) on `device`. The head layouts
     are kept as they are, so query head h stays kv head h // G, group
     h % G."""
-    from repro_torch.models.model import Model, xlstm_depths
+    from repro_torch.models.model import Model
 
     model = Model(cfg, device="meta").to_empty(device=device)
-    n_m, n_s = xlstm_depths(cfg) if cfg.slstm_every else (0, 0)
-    depths = {"blocks": cfg.n_layers, "mamba": cfg.n_layers,
-              "dec": cfg.n_layers, "enc": cfg.n_enc_layers,
-              "mlstm": n_m, "slstm": n_s}
+    depths = stack_depths(cfg)
 
     def flat(d, prefix=""):
         for k, v in d.items():
             if isinstance(v, dict):
                 yield from flat(v, f"{prefix}{k}.")
             else:
-                yield f"{prefix}{k}", np.asarray(v)
+                yield f"{prefix}{k}", v
 
     values = {}
     for name, a in flat({k: v for k, v in tree.items()
@@ -131,5 +177,7 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda"):
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: tree {a.shape}, model "
                                  f"{tuple(p.shape)}")
-            p.copy_(torch.tensor(np.asarray(a, np.float32)).to(p.dtype))
+            if not isinstance(a, torch.Tensor):
+                a = torch.tensor(np.asarray(a, np.float32))
+            p.copy_(a.to(p.dtype))
     return model

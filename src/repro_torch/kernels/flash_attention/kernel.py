@@ -38,6 +38,17 @@ schedule is the same function and moves only float32 rounding, so it
 agrees with the plain version at any `chunk_kv` within the float32 limit,
 and the plain version run with `chunk_kv=F32_KEY_TILE` follows its
 schedule.
+
+Under autograd (`flash_attention`, grad mode on and q, k or v requiring
+grad) the forward goes through `FlashAttention`, an autograd Function:
+its forward is `flash_attention_fwd` (the kernel on a CUDA tensor, the
+plain version on a CPU one) and its backward is `flash_attention_bwd`,
+plain torch tiled as the reference's model flash attention differentiates
+(`repro/models/attention.py:104-147`: each (chunk_q, chunk_kv) tile's
+scores and p recomputed, no (Sq, Skv) matrix stored). The kernels write
+their result outside autograd, so a direct launch with inputs that
+require grad under grad mode raises instead of returning a detached
+tensor.
 """
 from __future__ import annotations
 
@@ -123,6 +134,13 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
 
 
 def _launch(name: str, q, k, v, args):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            f"{name} writes its result outside autograd, so it would "
+            f"return a tensor with no gradient; call "
+            f"kernels.flash_attention.ops.flash_attention (the autograd "
+            f"Function) instead")
     index = q.device.index
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
@@ -229,3 +247,157 @@ def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
     kern, args = route(q, k, v, q_offset, causal=causal, window=window,
                        kv_len=kv_len, chunk_kv=chunk_kv)
     return kern(q, k, v, args)
+
+
+def _visited(k0, n_k, q_first, q_last, causal, window, kv_len):
+    """Whether key chunk [k0, k0 + n_k) holds a key that some query in
+    [q_first, q_last] may see: a wholly masked chunk adds exact zeros to
+    every sum of the backward (and leaves the running max as it was), so
+    skipping it changes no bit."""
+    if k0 >= kv_len or (causal and k0 > q_last):
+        return False
+    return not (window and q_first - (k0 + n_k - 1) >= window)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0,
+                        q_offset=0, kv_len=None, chunk_q=512, chunk_kv=1024):
+    """Gradients (dq, dk, dv) of `flash_attention_plain`'s output `o` =
+    attention(q, k, v) for the output gradient `do`, in plain torch.
+
+    Per chunk of `chunk_q` queries: a first pass over the key chunks
+    recomputes the forward's running max (kept per chunk, since p is
+    rounded to V's dtype against it) and row sum; D = rowsum(do * o);
+    a second pass recomputes each tile's p = exp(s - m) / l and adds
+    dV += p_fwd^T dO (p_fwd the forward's weights, rounded as it rounds
+    them), dS = p * (dO V^T - D), dQ += dS K and dK += dS^T Q (both times
+    the softmax scale). Float32 throughout, in batched matrix products
+    over (batch x kv head) with the query group folded into the rows, so
+    K/V gradients sum over each kv head's group; the scale, the D shift
+    and the accumulations ride in the products, and the rest runs in
+    place. The causal, window and kv_len mask is the forward's, applied
+    only to tiles it touches; key chunks that no query of the chunk sees
+    are skipped. Returns tensors in the dtypes of q, k and v."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    BK = B * K
+    cq, ckv = min(chunk_q, Sq), min(chunk_kv, Skv)
+    kv_len = Skv if kv_len is None else int(kv_len)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    f32 = torch.float32
+    round_p = v.dtype != f32
+
+    def rows(x, a, b):
+        """(B, S, H, hd)[:, a:b] -> (B * K, G * n, hd) float32, rows of a
+        kv head's group one after another."""
+        n = b - a
+        return x[:, a:b].reshape(B, n, K, G, hd).permute(0, 2, 3, 1, 4) \
+            .reshape(BK, G * n, hd).float()
+
+    def heads(x):
+        """(B, S, K, hd) -> (B * K, S, hd) float32."""
+        return x.permute(0, 2, 1, 3).reshape(BK, x.shape[1], hd).float()
+
+    kb, vb = heads(k), heads(v)
+    dq = torch.empty((B, Sq, K, G, hd), dtype=f32, device=dev)
+    dk = torch.zeros((BK, Skv, hd), dtype=f32, device=dev)
+    dv = torch.zeros((BK, Skv, hd), dtype=f32, device=dev)
+
+    for q0 in range(0, Sq, cq):
+        n_q = min(cq, Sq - q0)
+        qb, db = rows(q, q0, q0 + n_q), rows(do, q0, q0 + n_q)
+        neg_d = -(db * rows(o, q0, q0 + n_q)).sum(-1, keepdim=True)
+        q_first, q_last = q_offset + q0, q_offset + q0 + n_q - 1
+        qpos = torch.arange(q_first, q_last + 1, device=dev)
+        chunks = [(k0, min(ckv, Skv - k0)) for k0 in range(0, Skv, ckv)
+                  if _visited(k0, min(ckv, Skv - k0), q_first, q_last,
+                              causal, window, kv_len)]
+
+        def scores(k0, n_k):
+            """scale * Q K^T of the tile, (B*K, G*n_q, n_k), masked."""
+            s = torch.empty((BK, G * n_q, n_k), dtype=f32, device=dev)
+            torch.baddbmm(s, qb, kb[:, k0:k0 + n_k].transpose(1, 2),
+                          beta=0.0, alpha=scale, out=s)
+            if (k0 + n_k > kv_len or (causal and k0 + n_k - 1 > q_first)
+                    or (window and q_last - k0 >= window)):
+                kpos = torch.arange(k0, k0 + n_k, device=dev)
+                keep = (kpos < kv_len)[None, :].expand(n_q, n_k)
+                if causal:
+                    keep = keep & (kpos[None, :] <= qpos[:, None])
+                if window:
+                    keep = keep & ((qpos[:, None] - kpos[None, :]) < window)
+                s.view(BK, G, n_q, n_k).masked_fill_(~keep, NEG_INF)
+            return s
+
+        m = torch.full((BK, G * n_q, 1), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((BK, G * n_q, 1), dtype=f32, device=dev)
+        m_run = []
+        for k0, n_k in chunks:
+            s = scores(k0, n_k)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - m_new) \
+                + s.sub_(m_new).exp_().sum(dim=-1, keepdim=True)
+            m = m_new
+            m_run.append(m)
+        inv_l = 1.0 / torch.clamp_min(l, 1e-30)
+
+        dqb = torch.zeros_like(qb)
+        for (k0, n_k), m_c in zip(chunks, m_run):
+            s = scores(k0, n_k)
+            if round_p:
+                # the forward's weights: exp(s - m_c) rounded to V's
+                # dtype, carried to the final max by exp(m_c - m)
+                to_final = torch.exp(m_c - m) * inv_l
+                e = s.sub_(m_c).exp_()
+                p_fwd = e.to(v.dtype).float().mul_(to_final)
+                p = e.mul_(to_final)
+            else:
+                p = p_fwd = s.sub_(m).exp_().mul_(inv_l)
+            dv[:, k0:k0 + n_k].baddbmm_(p_fwd.transpose(1, 2), db)
+            ds = torch.baddbmm(neg_d, db, vb[:, k0:k0 + n_k].transpose(1, 2))
+            ds.mul_(p)
+            dqb.baddbmm_(ds, kb[:, k0:k0 + n_k], alpha=scale)
+            dk[:, k0:k0 + n_k].baddbmm_(ds.transpose(1, 2), qb, alpha=scale)
+        dq[:, q0:q0 + n_q] = dqb.view(B, K, G, n_q, hd).permute(0, 3, 1, 2, 4)
+    back = lambda x: x.view(B, K, Skv, hd).permute(0, 2, 1, 3)  # noqa: E731
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), back(dk).to(k.dtype),
+            back(dv).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: forward `flash_attention_fwd` (the
+    kernel `route` picks on a CUDA tensor, `flash_attention_plain` on a
+    CPU one), backward `flash_attention_bwd` from the saved q, k, v and
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window, kv_len, chunk_q,
+                chunk_kv):
+        o = flash_attention_fwd(q, k, v, q_offset, causal=causal,
+                                window=window, kv_len=kv_len,
+                                chunk_q=chunk_q, chunk_kv=chunk_kv)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        kv_len=kv_len, chunk_q=chunk_q, chunk_kv=chunk_kv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, q_offset=0, *, causal=True, window=0,
+                    kv_len=None, chunk_q=512, chunk_kv=1024):
+    """`flash_attention_fwd`, through `FlashAttention` when grad mode is on
+    and q, k or v requires grad (on either device), so the output carries
+    a gradient; outside autograd the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_offset, causal, window,
+                                    kv_len, chunk_q, chunk_kv)
+    return flash_attention_fwd(q, k, v, q_offset, causal=causal,
+                               window=window, kv_len=kv_len, chunk_q=chunk_q,
+                               chunk_kv=chunk_kv)

@@ -12,16 +12,19 @@ tiles, so `bq` shapes only the plain version; the plain version and the
 bf16 kernel refresh the running softmax max once per `bkv` keys, the
 float32 kernel once per key tile (`kernel.F32_KEY_TILE`), which at float32
 moves only rounding. All three take the model's sliding `window` and any
-head_dim that is a multiple of 8 up to 256.
+head_dim that is a multiple of 8 up to 256. Under autograd (grad mode on
+and q, k or v requiring grad) the call goes through the autograd Function
+`kernel.FlashAttention`: the same forward, and a plain-torch tiled
+backward (`kernel.flash_attention_bwd`).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention import kernel
 
 
 def flash_attention(q, k, v, q_offset=0, *, bq=256, bkv=512, causal=True,
                     window=0, kv_len=None):
     """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) -> (B, Sq, H, hd)."""
-    return flash_attention_fwd(q, k, v, q_offset, causal=causal,
-                               window=window, kv_len=kv_len, chunk_q=bq,
-                               chunk_kv=bkv)
+    return kernel.flash_attention(q, k, v, q_offset, causal=causal,
+                                  window=window, kv_len=kv_len, chunk_q=bq,
+                                  chunk_kv=bkv)

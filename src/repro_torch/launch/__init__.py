@@ -1,1 +1,3 @@
-"""Port of `repro.launch`: the serving launcher (`serve`)."""
+"""Port of `repro.launch`: the serving launcher (`serve`), the train step
+(`steps`) and the training launcher (`train`), co-design rates
+(`roofline`), the compile service and the fleet."""

@@ -11,18 +11,40 @@ arctic-480b), hybrid (zamba2-2.7b), ssm (xlstm-1.3b) and audio
 are 4-31 tokens, so they meet the Mamba2 and mLSTM rule (a prompt longer
 than 256 tokens must be a multiple of 256); a request must fit the cache
 window (n_patches + prompt + max_new - 1 <= --window, the rows it writes,
-else the engine raises).
+else the engine raises). `--ckpt-dir` serves the parameters of the
+newest committed training checkpoint there (its float32 master cast to
+each weight's working dtype) in place of the seeded ones. Requests
+alternate greedy and temperature 0.7 (`--greedy`: all greedy);
+`--output` writes each request's tokens as JSON lines {"rid", "tokens"}.
 Runs on the card unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         [--reduced] [--device cpu] [--slots 4] [--window 1024] \\
         [--decode-chunk 8] [--host-loop] [--kv-dtype int8] [--stats]
+        [--ckpt-dir DIR] [--greedy] [--output FILE]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+
+
+def model_from_checkpoint(cfg, ckpt_dir, device="cuda"):
+    """(step, Model) holding the parameters of the newest committed
+    training checkpoint in `ckpt_dir` (its "params/..." leaves, cast to
+    each weight's working dtype), or (None, None) if there is none."""
+    from repro_torch import interop
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.models.model import Model
+
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return None, None
+    like = {"params": interop.param_tree(Model(cfg, device="meta"))}
+    tree = restore_checkpoint(ckpt_dir, step, like, device=device)
+    return step, interop.model_params_from_numpy(cfg, tree["params"],
+                                                 device=device)
 
 
 def main(argv=None):
@@ -39,6 +61,11 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"])
     ap.add_argument("--ckpt-dir", default=None,
                     help="restore trained params from a checkpoint dir")
+    ap.add_argument("--greedy", action="store_true",
+                    help="every request greedy (default: odd rids sample "
+                         "at temperature 0.7)")
+    ap.add_argument("--output", default=None,
+                    help="write each request's tokens as JSON lines")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
@@ -46,10 +73,6 @@ def main(argv=None):
                     help="attach the runtime telemetry collector and print "
                          "the window summary + per-request log")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("checkpoint restore is not ported to "
-                                  "repro_torch yet (ROADMAP Queue 1 item "
-                                  "13c)")
 
     import numpy as np
     import torch
@@ -64,7 +87,12 @@ def main(argv=None):
                                   dtype="float32")
     if args.kv_dtype:
         cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
-    model = Model(cfg, device=args.device, seed=0)
+    step, model = (model_from_checkpoint(cfg, args.ckpt_dir, args.device)
+                   if args.ckpt_dir else (None, None))
+    if model is None:
+        model = Model(cfg, device=args.device, seed=0)
+    else:
+        print(f"restored params from step {step}")
 
     collector = None
     if args.stats:
@@ -79,13 +107,20 @@ def main(argv=None):
             rid=i,
             prompt=rng.integers(0, cfg.vocab_size,
                                 rng.integers(4, 32)).astype(np.int32),
-            max_new_tokens=args.max_new, temperature=0.7 if i % 2 else 0.0))
+            max_new_tokens=args.max_new,
+            temperature=0.7 if i % 2 and not args.greedy else 0.0))
     t0 = time.time()
     done, steps = eng.run()
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
+    if args.output:
+        import json
+        with open(args.output, "w") as f:
+            for r in sorted(done, key=lambda r: r.rid):
+                f.write(json.dumps({"rid": r.rid, "tokens": [
+                    int(t) for t in r.out_tokens]}) + "\n")
     mode = "host-loop" if args.host_loop else \
         f"device chunk={eng.decode_chunk}"
     print(f"served {len(done)} requests / {toks} tokens in {steps} engine "

@@ -4,8 +4,10 @@ positions and init (port of `repro.models.common`).
 Weights live in `nn.Module`s whose parameter names follow the keys of the
 reference's parameter dicts ("scale", "wq", "w1", ...), so a reference
 tree maps onto a port module name for name (`repro_torch.interop`).
-Parameters are made with `requires_grad=False`: the serving slice runs no
-autograd. Random draws take an explicit `torch.Generator`.
+Parameters are made with `requires_grad=False`: serving runs no autograd,
+and training differentiates a tree of tensors passed to `Model.loss`
+(the trainer's float32 master, cast). Random draws take an explicit
+`torch.Generator`.
 
 On one card there is no mesh: `shard_act` is the identity, and the
 reference's XLA mesh helpers (`sharding_ctx`, `logical_to_pspec`,
@@ -21,13 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch._deferred import deferred
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16, "float64": torch.float64}
-
-chunked_softmax_xent = deferred("models.common.chunked_softmax_xent",
-                                "Queue 1 item 13c (training)")
 
 
 def shard_act(x, *logical_axes):
@@ -152,3 +151,77 @@ def sinusoid_at(pos, d):
     expo = i * 2 / i.new_tensor(float(d))
     ang = pos[:, None].float() / torch.pow(i.new_tensor(10000.0), expo)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Token embedding with an ordered backward
+# ---------------------------------------------------------------------------
+
+class _Embed(torch.autograd.Function):
+    """F.embedding whose weight gradient sums each token's rows in a fixed
+    order: a float32 `index_put_(accumulate=True)`, which sorts the
+    indices and adds duplicates in sequence on the card (no atomics),
+    cast to the weight's dtype at the end."""
+
+    @staticmethod
+    def forward(ctx, tokens, w):
+        ctx.save_for_backward(tokens)
+        ctx.w_shape, ctx.w_dtype = w.shape, w.dtype
+        return F.embedding(tokens, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        gw = torch.zeros(ctx.w_shape, dtype=torch.float32, device=g.device)
+        gw.index_put_((tokens.reshape(-1).long(),),
+                      g.reshape(-1, ctx.w_shape[1]).float(), accumulate=True)
+        return None, gw.to(ctx.w_dtype)
+
+
+def embed(tokens, w):
+    """w[tokens]: (..., d). Under autograd the weight's gradient is summed
+    in a fixed order (`_Embed`), so a train step is bit-reproducible on
+    the card."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _Embed.apply(tokens, w)
+    return F.embedding(tokens, w)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy: never materializes (B, S, V) logits in one piece
+# ---------------------------------------------------------------------------
+
+def chunked_softmax_xent(h, w_unembed, labels, chunk=512, ignore_index=-100):
+    """h: (B, S, d) final hidden; w_unembed: (d, V); labels: (B, S) int.
+
+    The mean cross-entropy over the positions whose label is not
+    `ignore_index`, float32. Runs over chunks of `chunk` positions plus
+    the remainder chunk, each under `torch.utils.checkpoint`, so the
+    backward recomputes a chunk's (B, chunk, V) float32 logits and only
+    one such block lives at a time. Logits are float32 sums of the working
+    dtype's products (the unembedding is cast to float32 once), as the
+    reference's preferred_element_type; per-chunk sums are added in chunk
+    order."""
+    B, S, d = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    w32 = w_unembed.float()
+    V = w32.shape[-1]
+
+    def one(hc, lc, w):
+        logits = hc.float() @ w                           # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        safe = torch.clamp(lc, 0, V - 1).long()
+        tgt = logits.gather(-1, safe[..., None])[..., 0]
+        mask = (lc != ignore_index).float()
+        return ((lse - tgt) * mask).sum(), mask.sum()
+
+    tot = cnt = h.new_zeros((), dtype=torch.float32)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if S - n * chunk:
+        bounds.append((n * chunk, S))
+    for a, b in bounds:
+        s, c = checkpoint(one, h[:, a:b], labels[:, a:b], w32,
+                          use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -22,6 +22,7 @@ Layers run as a Python loop.
 
 API (the reference's, with the parameters held by the module):
   Model(cfg, device=, seed=)                -> seeded truncated-normal init
+  loss(batch, params=None)                  -> (loss, {"ce", "aux"})
   prefill(batch, W)                         -> (logits_last, cache, pos)
   decode_step(cache, token, pos)            -> (logits, cache)
   decode_loop(cache, token, pos, emitted, max_new, done, eos, sample_fn,
@@ -43,18 +44,36 @@ updates in place:
               "sm": (n_s, B, d)}, the states float32, mM and sm from -1e30;
   audio       {"k", "v": (L, B, W, K, hd), "xk", "xv": (L, B, F, K, hd)},
               the encoder's K/V per decoder layer, written by prefill.
-Training (`loss`) raises NotImplementedError naming its ROADMAP item.
+
+Training: `loss` runs the train-mode forward of every family (the
+reference's `Model.loss`), differentiably. `params`, if given, is the
+reference's STACKED parameter tree (`param_tree`: "embed",
+"final_norm", ["unembed"], and the layer stacks "blocks", "mamba" plus
+"shared_attn", "mlstm" and "slstm", or "enc", "enc_norm" and "dec", every
+stacked leaf with its leading layer axis), used in place of the module's
+own weights: the trainer passes its float32 master cast to the working
+dtype, and gradients flow back to that tree (each stack is unbound into
+its layers once, so a stack's gradient is gathered in one stack op).
+`cfg.remat` checkpoints as the reference's `_remat`: "full" each block
+under `torch.utils.checkpoint` (non-reentrant), "dots" the same keeping
+the 2-D matrix products' outputs, "none" nothing; the blocks it wraps
+are the reference's scan bodies (in the hybrid and ssm families the
+Mamba2 and mLSTM layers, not the shared attention block or the sLSTM).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch._deferred import deferred
 from repro_torch.models import attention, ssm, transformer as tfm, xlstm
-from repro_torch.models.common import dense_init, dtype_of, norm, \
-    norm_init, param, sinusoid_at, sinusoidal_positions
+from repro_torch.models.common import chunked_softmax_xent, dense_init, \
+    dtype_of, embed, norm, norm_init, param, sinusoid_at, \
+    sinusoidal_positions
 
 KV_FAMILIES = ("dense", "vlm", "moe")
 FAMILIES = KV_FAMILIES + ("hybrid", "ssm", "audio")
@@ -65,6 +84,110 @@ def xlstm_depths(cfg):
     per group of `slstm_every`."""
     n_s = cfg.n_layers // cfg.slstm_every
     return cfg.n_layers - n_s, n_s
+
+
+def stack_depths(cfg) -> dict:
+    """The layer stacks of the config's family and their depths:
+    "blocks" (dense, vlm, moe), "mamba" (hybrid; its "shared_attn" is
+    not stacked), "mlstm" and "slstm" (ssm), "enc" and "dec" (audio)."""
+    fam = cfg.family
+    if fam == "hybrid":
+        return {"mamba": cfg.n_layers}
+    if fam == "ssm":
+        n_m, n_s = xlstm_depths(cfg)
+        return {"mlstm": n_m, "slstm": n_s}
+    if fam == "audio":
+        return {"enc": cfg.n_enc_layers, "dec": cfg.n_layers}
+    return {"blocks": cfg.n_layers}
+
+
+def _nest(flat: dict) -> dict:
+    """{"a.b.c": x} -> {"a": {"b": {"c": x}}}."""
+    out = {}
+    for name, v in flat.items():
+        *head, last = name.split(".")
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = v
+    return out
+
+
+def param_tree(model, dtype=None) -> dict:
+    """The model's parameters as the reference's stacked tree of tensors
+    (copies), in `dtype` if given, else each parameter's own dtype, on
+    the model's device (a meta model gives meta tensors: shapes only)."""
+    depths = stack_depths(model.cfg)
+    named = dict(model.named_parameters())
+    flat = {}
+    for name, p in named.items():
+        stack, *rest = name.split(".")
+        if stack in depths:
+            if rest[0] != "0":
+                continue
+            key = ".".join(rest[1:])
+            t = torch.stack([named[f"{stack}.{i}.{key}"].detach()
+                             for i in range(depths[stack])])
+            flat[f"{stack}.{key}"] = t if dtype is None else t.to(dtype)
+        else:
+            flat[name] = p.detach().to(dtype or p.dtype, copy=True)
+    return _nest(flat)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products with no
+    batch dimension (the reference's checkpoint_dots_with_no_batch_dims),
+    recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode):
+    """`fn` checkpointed as `cfg.remat` says: "full" recomputes the whole
+    block in the backward, "dots" keeps the matrix products' outputs,
+    "none" (or anything else) saves as autograd does."""
+    if mode == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if mode == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_matmuls)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    return fn
+
+
+class _View:
+    """Attribute access to a dict of tensors (one layer's slice of a
+    stacked tree, or an unstacked part of it), as the blocks read a
+    module's parameters."""
+
+    def __init__(self, d):
+        for k, v in d.items():
+            setattr(self, k, _View(v) if isinstance(v, dict) else v)
+
+
+def _unstack(tree, n):
+    """A stacked dict tree -> n per-layer `_View`s (each leaf unbound
+    along its leading layer axis once)."""
+    parts = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+             for k, v in tree.items()}
+    return [_View({k: p[i] for k, p in parts.items()}) for i in range(n)]
+
+
+class _Weights:
+    """The weights `loss` reads, from a stacked tree: the same attribute
+    names as the module ("embed", "final_norm", "blocks", ...), the
+    stacks as lists of per-layer views."""
+
+    def __init__(self, cfg, tree):
+        depths = stack_depths(cfg)
+        for k, v in tree.items():
+            depth = depths.get(k)
+            setattr(self, k, _unstack(v, depth) if depth is not None
+                    else _View(v) if isinstance(v, dict) else v)
 
 
 class Model(nn.Module):
@@ -104,8 +227,6 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = param(dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), dt, device=dev))
-
-    loss = deferred("models.model.Model.loss", "Queue 1 item 13c (training)")
 
     @property
     def device(self) -> torch.device:
@@ -152,6 +273,87 @@ class Model(nn.Module):
         """h_last: (B, d) -> (B, V) float32: float32 sums of the working
         dtype's products, as the reference's preferred_element_type."""
         return h_last.float() @ self._unembed_w().float()
+
+    # ------------------------------------------------------------------
+    # loss (train step forward)
+    # ------------------------------------------------------------------
+    def loss(self, batch, params=None):
+        """(loss, {"ce", "aux"}): the mean next-token cross-entropy of
+        `batch` ("tokens", "labels" (B, S) int; the audio family's
+        "frames" (B, F, d), the vlm family's "patches" (B, P, d), cast to
+        the working dtype), plus 0.01 times the MoE load-balancing aux
+        loss summed over the layers. The vlm family prepends the patches
+        and pads the labels with -100 (ignored) over them. Reads the
+        weights of `params` (a stacked tree, see the module docstring)
+        if given, else a copy of the module's own in that layout (which
+        no gradient reaches)."""
+        cfg = self.cfg
+        W = _Weights(cfg, param_tree(self) if params is None else params)
+        tokens, labels = batch["tokens"], batch["labels"]
+        B = tokens.shape[0]
+        dt = W.embed.dtype
+        dev = W.embed.device
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        h = embed(tokens, W.embed)
+        if cfg.family == "audio":
+            e = batch["frames"].to(dt)
+            e = e + sinusoidal_positions(e.shape[1], cfg.d_model,
+                                         dev).to(dt)[None]
+            enc = _remat(lambda bp, x: tfm.enc_block_apply(bp, x, cfg),
+                         cfg.remat)
+            for bp in W.enc:
+                e = enc(bp, e)
+            enc_out = norm(e, W.enc_norm, cfg)
+            S = tokens.shape[1]
+            h = h + sinusoidal_positions(S, cfg.d_model, dev).to(h.dtype)[None]
+            positions = torch.arange(S, device=dev).expand(B, S)
+            dec = _remat(lambda bp, x: tfm.xdec_block_apply(
+                bp, x, enc_out, positions, cfg)[0], cfg.remat)
+            for bp in W.dec:
+                h = dec(bp, h)
+        else:
+            if cfg.family == "vlm":
+                patches = batch["patches"].to(dt)
+                h = torch.cat([patches, h], dim=1)
+                pad = torch.full((B, patches.shape[1]), -100,
+                                 dtype=labels.dtype, device=labels.device)
+                labels = torch.cat([pad, labels], dim=1)
+            S = h.shape[1]
+            positions = torch.arange(S, device=dev).expand(B, S)
+            h, aux = self._backbone_train(W, h, positions, aux)
+        h = norm(h, W.final_norm, cfg)
+        unembed = W.embed.T if cfg.tie_embeddings else W.unembed
+        ce = chunked_softmax_xent(h, unembed, labels)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def _backbone_train(self, W, h, positions, aux):
+        cfg = self.cfg
+        remat = functools.partial(_remat, mode=cfg.remat)
+        if cfg.family == "moe":
+            body = remat(lambda bp, x: tfm.moe_block_apply(bp, x, positions,
+                                                           cfg))
+            for bp in W.blocks:
+                h, a = body(bp, h)
+                aux = aux + a
+        elif cfg.family == "hybrid":
+            inner = remat(lambda mp, x: ssm.apply(mp, x, cfg) + x)
+            for layer, mp in enumerate(W.mamba):
+                h = inner(mp, h)
+                if (layer + 1) % cfg.attn_every == 0:
+                    h = tfm.dense_block_apply(W.shared_attn, h, positions,
+                                              cfg)
+        elif cfg.family == "ssm":
+            inner = remat(lambda mp, x: xlstm.m_apply(mp, x, cfg) + x)
+            for mls, g in self._xlstm_groups():
+                for i in mls:
+                    h = inner(W.mlstm[i], h)
+                h = h + xlstm.s_apply(W.slstm[g], h, cfg)
+        else:
+            body = remat(lambda bp, x: tfm.dense_block_apply(bp, x,
+                                                             positions, cfg))
+            for bp in W.blocks:
+                h = body(bp, h)
+        return h, aux
 
     # ------------------------------------------------------------------
     # caches
@@ -307,7 +509,7 @@ class Model(nn.Module):
         """(mLSTM layer indices, sLSTM index) of each group."""
         per = self.cfg.slstm_every - 1
         return [(range(g * per, (g + 1) * per), g)
-                for g in range(len(self.slstm))]
+                for g in range(xlstm_depths(self.cfg)[1])]
 
     def _xlstm_prefill(self, h):
         convs, Cs, ns, ms, sstates = [], [], [], [], []

@@ -12,6 +12,8 @@ token's k weighted contributions in the working dtype, in assignment
 order. No atomics: a kept assignment owns its (expert, rank) row of the
 buffer, so the dispatch is a plain index write (dropped ones go to a
 spare row that is cut off), and the combine is a sum over the k axis.
+The k copies of a token are an expand, not a gather, so under autograd
+their gradients meet in a sum over k, in order, with no scattered add.
 T counts every row the caller passes, so capacity drops depend on the
 batch, as in the reference.
 
@@ -77,7 +79,6 @@ def _moe_local(x, router_w, w1, w3, w2, cfg):
     gates, idx, aux = _route(x.float(), router_w, k)
     flat_e = idx.reshape(-1)                        # (T*k,) token-major
     flat_g = gates.reshape(-1)
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
 
     # rank of each assignment among its expert's, in token order
     onehot = F.one_hot(flat_e, E)                   # (T*k, E)
@@ -90,7 +91,8 @@ def _moe_local(x, router_w, w1, w3, w2, cfg):
     # dispatch: each kept assignment writes its own (expert, rank) row;
     # dropped ones write the spare row C, cut off below
     buf = x.new_zeros((E, C + 1, d))
-    buf[flat_e, torch.where(keep, slot, C)] = x[flat_t]
+    buf[flat_e, torch.where(keep, slot, C)] = \
+        x[:, None].expand(T, k, d).reshape(T * k, d)
     buf = buf[:, :C]
 
     h = act(torch.bmm(buf, w1)) * torch.bmm(buf, w3)

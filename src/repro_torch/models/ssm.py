@@ -14,6 +14,11 @@ so no TF32 enters on the card).
 Decode advances the state one token at a time with the last k-1
 pre-activation conv inputs as history.
 
+Under autograd the chunk's masked decay exponents are set to -inf before
+exp (the reference exponentiates them and masks after, which overflows
+to inf at S = 64 on reduced zamba2 and turns the whole backward into
+NaN); the forward is the reference's bit for bit.
+
 A prompt longer than `CHUNK` must be a multiple of it (the reference's
 `assert S % Q == 0`): padding on the right would run the pad through the
 recurrence and corrupt the state a decode continues from.
@@ -143,7 +148,13 @@ def apply(p, x, cfg, conv_state=None, ssm_state=None, return_state=False):
         cum = torch.cumsum(daq, dim=1)                        # (B, Q, H)
         # intra-chunk: w[b,i,j,h] = (C_i . B_j) exp(cum_i - cum_j) dt_j
         cb = torch.einsum("bqn,bsn->bqs", Cq, Bq)             # (B, Q, Q)
-        dec = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
+        # masked (j > i) exponents are set to -inf before exp: their
+        # cum_i - cum_j >= 0 can overflow to inf, which leaves the
+        # forward's masked zeros as they are but makes the backward's
+        # 0 * inf a NaN
+        dec = torch.exp(torch.where(causal[None, :, :, None],
+                                    cum[:, :, None, :] - cum[:, None, :, :],
+                                    -torch.inf))
         w = cb[..., None] * dec * dtq[:, None, :, :]
         w = torch.where(causal[None, :, :, None], w, 0.0)
         y = torch.einsum("bqsh,bshp->bqhp", w, xq)

@@ -223,13 +223,19 @@ def test_profile_demands_units():
 @pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_nondense_arch_raises_naming_item_13(arch):
     """A non-dense arch profiles like the reference (its serving model is
-    ported); what it still lacks, training, raises naming item 13c."""
+    ported), and its training (item 13c, ported since; held to the
+    reference in tests/test_torch_training_families.py) runs: a finite
+    loss on the reduced config."""
     assert_json(dataclasses.asdict(profile_arch(arch, "decode_32k")),
                 dataclasses.asdict(ref_prof.profile_arch(arch,
                                                          "decode_32k")))
+    import torch
     from repro_torch.models.model import Model
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        Model(get_config(arch), device="meta").loss({})
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    tok = torch.zeros((1, 8), dtype=torch.int32)
+    loss, met = Model(cfg, device="cpu").loss({"tokens": tok,
+                                               "labels": tok})
+    assert bool(torch.isfinite(loss)) and float(met["aux"]) == 0.0
 
 
 @pytest.mark.parametrize("arch,active,total", [

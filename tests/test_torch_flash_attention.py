@@ -9,6 +9,14 @@ model's flash attention at float32 the two compute the same chunked
 online softmax and differ only in the order of float32 sums, measured
 at most 7.2e-7 here, so the limit is 2e-6; at bfloat16 p is rounded to V's
 dtype in both, and the limit is the reference's 3e-2.
+
+Under autograd (`kernel.FlashAttention`, the forward plus a plain-torch
+tiled backward) the gradients are held to `jax.grad` of the model's
+flash attention within 1e-5 of each input's largest gradient at
+float32: the same tiles and float32 algebra, the backward's sums in
+another order (measured at most 6.6e-7). At bfloat16 the gradients are
+held to the float32 run of the same values within 2^-6 of the largest
+(measured 5.3e-3 on dq).
 """
 import jax
 import jax.experimental
@@ -333,3 +341,119 @@ def test_cpu_tensors_take_the_plain_version(dtype, window):
     want = kernel.flash_attention_plain(q, k, v, window=window, chunk_q=8,
                                         chunk_kv=16)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# (B, Sq, Skv, H, K, hd, causal, q_offset, window, chunk_q, chunk_kv):
+# causal, non-causal (cross-attention, Skv != Sq), a window, G = 4, and
+# sequences that are not multiples of the chunks
+GRAD_CASES = [
+    (2, 40, 40, 8, 2, 16, True, 0, 0, 16, 16),
+    (1, 24, 50, 4, 4, 16, False, 0, 0, 8, 16),
+    (2, 48, 48, 8, 2, 16, True, 0, 12, 16, 8),
+    (1, 37, 37, 8, 2, 8, True, 0, 0, 16, 16),
+    (1, 30, 45, 4, 1, 16, True, 15, 0, 8, 32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,off,window,cq,ckv",
+                         GRAD_CASES)
+def test_function_gradients_match_the_model_flash(B, Sq, Skv, H, K, hd,
+                                                  causal, off, window, cq,
+                                                  ckv):
+    q, k, v = _qkv(B + Sq + Skv, B, Sq, Skv, H, K, hd)
+    do = np.random.default_rng(7).standard_normal((B, Sq, H, hd)).astype(
+        np.float32)
+
+    def f(q, k, v):
+        o = ref_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=off,
+                                          chunk_q=cq, chunk_kv=ckv)
+        return jnp.sum(o * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+    before = _launches()
+    o = ops.flash_attention(qt, kt, vt, off, bq=cq, bkv=ckv, causal=causal,
+                            window=window)
+    assert "FlashAttention" in type(o.grad_fn).__name__
+    o.backward(torch.tensor(do))
+    assert _launches() == before
+    for t, w in zip((qt, kt, vt), want):
+        w = np.asarray(w)
+        assert np.abs(t.grad.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,off,window,cq,ckv",
+                         GRAD_CASES)
+def test_function_gradients_bf16_match_the_model_flash(B, Sq, Skv, H, K, hd,
+                                                       causal, off, window,
+                                                       cq, ckv):
+    """bf16 inputs, the port at the case's chunks against jax.grad of the
+    reference's model flash with one q chunk on the same bf16 values.
+    With one q chunk the reference's dV is one float32 product of the
+    rounded p, rounded once to bf16 (with several it sums per-chunk dV in
+    bf16), so dV must agree bit for bit but for rare rounding flips:
+    within 1e-4 of its largest (measured <= 8.6e-9; with p left
+    unrounded, 1.3e-3 to 5.0e-3). dQ and dK: the reference rounds dP and
+    the per-tile partial sums to bf16, the port keeps float32 to the end,
+    so within 2^-7 of the largest (measured <= 5.6e-3)."""
+    q, k, v = _qkv(B + Sq + Skv, B, Sq, Skv, H, K, hd)
+    do = np.random.default_rng(7).standard_normal((B, Sq, H, hd)).astype(
+        np.float32)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    do_bf = bf(do).astype(jnp.float32)
+
+    def f(q, k, v):
+        o = ref_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=off,
+                                          chunk_q=Sq, chunk_kv=ckv)
+        return jnp.sum(o.astype(jnp.float32) * do_bf)
+    want = jax.grad(f, argnums=(0, 1, 2))(bf(q), bf(k), bf(v))
+    qt, kt, vt = (_t(a, torch.bfloat16).requires_grad_() for a in (q, k, v))
+    o = ops.flash_attention(qt, kt, vt, off, bq=cq, bkv=ckv, causal=causal,
+                            window=window)
+    assert "FlashAttention" in type(o.grad_fn).__name__
+    o.backward(_t(do, torch.bfloat16))
+    for t, w, rel in zip((qt, kt, vt), want, (2 ** -7, 2 ** -7, 1e-4)):
+        assert t.grad.dtype == torch.bfloat16
+        g, w = t.grad.float().numpy(), np.asarray(w.astype(jnp.float32))
+        assert np.abs(g - w).max() <= rel * np.abs(w).max()
+
+
+def test_function_backward_bf16_follows_float32():
+    """bf16 inputs: the gradients of the forward's rounded weights, held
+    to the float32 run of the same values within bf16's 2^-6 of the
+    largest gradient."""
+    q, k, v = _qkv(5, 1, 40, 40, 8, 2, 16)
+    do = np.random.default_rng(8).standard_normal((1, 40, 8, 16))
+    grads = {}
+    for dt in (torch.float32, torch.bfloat16):
+        ts = [_t(a, dt).requires_grad_() for a in (q, k, v)]
+        o = ops.flash_attention(*ts, bq=16, bkv=16)
+        o.backward(torch.tensor(do, dtype=dt))
+        grads[dt] = [t.grad.float() for t in ts]
+        assert all(t.grad.dtype == dt for t in ts)
+    for a, b in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert float((a - b).abs().max()) <= 2 ** -6 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("kern", ["flash_attention_tc",
+                                  "flash_attention_f32"])
+def test_direct_kernel_call_with_grad_raises(kern):
+    """The kernels write outside autograd: a direct launch with inputs
+    that require grad under grad mode raises, never returns a detached
+    tensor (checked before the launch, so on any device)."""
+    dt = torch.bfloat16 if kern.endswith("tc") else torch.float32
+    q, k, v = (_t(a, dt) for a in _qkv(1, 1, 8, 8, 4, 2, 16))
+    args = (1, 8, 8, 4, 2, 16, 0, 8, 1, 0, 8)
+    with pytest.raises(RuntimeError, match="outside autograd"):
+        getattr(kernel, kern)(q.requires_grad_(), k, v, args)
+
+
+def test_no_function_outside_autograd():
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(2, 1, 8, 8, 4, 2, 16))
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v)
+    assert o.grad_fn is None
+    o = ops.flash_attention(q.detach(), k.detach(), v.detach())
+    assert o.grad_fn is None

@@ -904,3 +904,87 @@ def test_compile_service_launches_the_kernels(cuda):
     assert g["t_cell_sim_s"] == pytest.approx(w["t_cell_sim_s"], rel=5e-8)
     assert g["timing"]["t_read_s"] == pytest.approx(w["timing"]["t_read_s"],
                                                     rel=1e-12)
+
+
+# -- training: the flash Function's backward and a reduced train step
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 300, 300, 8, 2, 64, 0, True),
+                                   (2, 64, 150, 4, 4, 64, 0, False),
+                                   (1, 600, 600, 8, 2, 128, 256, True)],
+                         ids=str)
+def test_flash_function_backward_matches_autograd_through_plain(cuda, shape,
+                                                                dtype):
+    """A CUDA flash call whose inputs require grad goes through the
+    Function (one forward launch, an output with a grad_fn); its dq, dk,
+    dv match autograd through the plain version: 1e-5 of the largest at
+    float32, 2^-5 at bf16 (the kernel's output enters D = rowsum(dO O),
+    and the plain version's autograd rounds p's gradient to bf16)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    B, Sq, Skv, H, K, hd, window, causal = shape
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                                   device=cuda)
+                   for s in ((B, Sq, H, hd), (B, Skv, K, hd),
+                             (B, Skv, K, hd), (B, Sq, H, hd)))
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = _flash_counts()
+    o = ops.flash_attention(*ins, bq=128, bkv=256, causal=causal,
+                            window=window)
+    assert _one_launch_of(dtype, before) and o.grad_fn is not None
+    got = torch.autograd.grad(o, ins, do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(
+        *ref, causal=causal, window=window, chunk_q=128, chunk_kv=256),
+        ref, do)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert float((g.float() - w.float()).abs().max()) <= \
+            rtol * float(w.float().abs().max())
+
+
+def test_reduced_train_step_on_the_card(cuda):
+    """Two reduced llama train steps on the card against the CPU (the
+    same initial state and batches) within the CPU parity limits, with
+    the float32 flash kernel launched once per layer and step, and bit
+    for bit the same when repeated."""
+    import dataclasses
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="float32")
+    bundle = steps.build_train(cfg, total_steps=50)
+    init = bundle.init_state(Model(cfg, device="cpu", seed=0))
+    data = SyntheticLMData(cfg.vocab_size, 64, 4)
+
+    def run(device):
+        state = interop.tree_map(lambda t: t.to(device), init)
+        losses = []
+        for s in range(2):
+            state, m = bundle.step(state, steps.to_device(data.batch_at(s),
+                                                          device))
+            losses.append(float(m["loss"]))
+        return interop.train_state_to_numpy(state), losses
+
+    before = kernel.flash_attention_f32.launches
+    card, card_l = run(cuda)
+    assert kernel.flash_attention_f32.launches - before == 2 * cfg.n_layers
+    again, again_l = run(cuda)
+    host, host_l = run("cpu")
+    assert again_l == card_l
+    for a, b in zip(tree_leaves(card), tree_leaves(again)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(card_l, host_l):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(tree_leaves(card["params"]),
+                    tree_leaves(host["params"])):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()

@@ -217,21 +217,28 @@ def test_init_is_seeded_and_sized():
 
 @pytest.mark.parametrize("what", ["Model.loss", "chunked_softmax_xent",
                                   "serve --ckpt-dir"])
-def test_deferred_families_raise(what):
-    """What is still deferred, training (Queue 1 item 13c), raises naming
-    its item."""
+def test_deferred_families_raise(what, tmp_path):
+    """What was deferred until training (Queue 1 item 13c) runs now:
+    `Model.loss`, `chunked_softmax_xent` (held to the reference in
+    tests/test_torch_training.py) and serve's `--ckpt-dir`, which serves
+    the seeded weights when the directory holds no checkpoint."""
     _, cfg = _configs("llama3.2-1b")
+    tok = torch.zeros((1, 8), dtype=torch.int32)
     calls = {
-        "Model.loss": lambda: Model(cfg, device="cpu").loss({}),
+        "Model.loss": lambda: Model(cfg, device="cpu").loss(
+            {"tokens": tok, "labels": tok})[0],
         "chunked_softmax_xent": lambda: common.chunked_softmax_xent(
             torch.zeros((1, 2, 4)), torch.zeros((4, 8)),
             torch.zeros((1, 2), dtype=torch.int32)),
-        "serve --ckpt-dir": lambda: serve.main(
+        "serve --ckpt-dir": lambda: torch.tensor(float(serve.main(
             ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
-             "--ckpt-dir", "ckpt"]),
+             "--requests", "1", "--max-new", "2",
+             "--ckpt-dir", str(tmp_path)]))),
     }
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        calls[what]()
+    got = calls[what]()
+    assert bool(torch.isfinite(got))
+    if what == "chunked_softmax_xent":
+        assert float(got) == pytest.approx(np.log(8))
 
 
 # ---------------------------------------------------------------------------

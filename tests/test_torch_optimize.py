@@ -241,8 +241,9 @@ def test_optimize_query_validates_at_construction():
 
 
 def test_optim_exports_the_ported_optimizers():
-    """`repro_torch.optim` re-exports what `repro.optim` does; the
-    training optimizers and schedules still name their item."""
+    """`repro_torch.optim` re-exports what `repro.optim` does, the
+    training optimizers and schedules included (item 13c; held to the
+    reference in tests/test_torch_train_optim.py)."""
     import repro.optim as ref_optim
     import repro_torch.optim as optim
     from repro_torch.optim import adamw, global_norm
@@ -254,6 +255,8 @@ def test_optim_exports_the_ported_optimizers():
                                            "make_schedule"))
     tree = {"a": torch.tensor([3.0, 4.0]), "b": [torch.tensor([12.0])]}
     assert float(global_norm(tree)) == pytest.approx(13.0)
-    for name in ("adafactor", "make_optimizer", "make_schedule"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(optim, name)()
+    from repro_torch.optim.optimizers import adafactor, make_optimizer
+    from repro_torch.optim.schedules import make_schedule
+    assert optim.adafactor is adafactor
+    assert optim.make_optimizer is make_optimizer
+    assert optim.make_schedule is make_schedule

@@ -216,7 +216,10 @@ def test_sample_tokens_draws_from_the_top_k_support():
     assert len(seen[5]) > 1                          # really sampled
 
 
-def test_launcher_serves_on_the_cpu_and_defers_what_is_not_ported(capsys):
+def test_launcher_serves_on_the_cpu_and_defers_what_is_not_ported(capsys,
+                                                                  tmp_path):
+    """The launcher serves seeded weights, the int8 KV cache, and (since
+    training is ported) a checkpoint's parameters with `--ckpt-dir`."""
     assert serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
                        "--requests", "3", "--max-new", "4", "--stats"]) == 0
     out = capsys.readouterr().out
@@ -225,9 +228,18 @@ def test_launcher_serves_on_the_cpu_and_defers_what_is_not_ported(capsys):
                        "--requests", "3", "--max-new", "4", "--kv-dtype",
                        "int8"]) == 0
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
-                    "--ckpt-dir", "ckpt"])
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.steps import build_train
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              name="qwen2-0.5b", dtype="float32")
+    save_checkpoint(str(tmp_path), 5, build_train(cfg).init_state(
+        Model(cfg, device="cpu", seed=5)))
+    assert serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4",
+                       "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "restored params from step 5" in out
+    assert "served 3 requests / 12 tokens" in out
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b",

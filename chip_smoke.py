@@ -184,6 +184,29 @@ Phases:
      streams equal to a `Model` holding the trained params'; the forward
      kernel at llama's training shape (B = 4) and the Function's
      backward beside SDPA's;
+ 11e. the mesh layer (at most 90 s, its wall printed): dry-run cells on
+     fake tensors over a fake process group (`launch.dryrun.run_cell`:
+     llama3.2-1b train_4k, prefill_32k and decode_32k on 16x16, qwen2-0.5b
+     prefill_32k on 2x16x16, its sequence-parallel flash), each record's
+     roofline row and peak GiB per device printed, flops x chips at least
+     MODEL_FLOPS, no unknown trip count, 256 and 512 chips; then on a real
+     one-rank nccl group over the card, a (1, 1) DeviceMesh, full-width
+     llama3.2-1b's bundles at the 16x16 mesh's per-device batches: prefill
+     (B = 2, S = 32,768: 16 tensor-core flash launches), decode (B = 8,
+     W = 32,768) and a train step (2 layers, B = 2, S = 4,096: 4 flash
+     launches), each run under the analyzer and held to its fake-tensor
+     twin (flops, dots and bytes equal exactly) and to the same step
+     without a mesh (logits within 3e-2 of the largest; the train step
+     from step 100, past the warmup: its loss within 1e-5, its gradient
+     norm and the norm of its step on the master within 2^-8, the
+     updated first moment within 2^-5 of each leaf's largest), the fake
+     run's peak estimate
+     printed beside `torch.cuda.max_memory_allocated`; the tensor-core
+     flash kernel against the plain version at the prefill's per-layer
+     shape (B = 2, S = 32,768; one launch, outside the steps' counts),
+     the whole output within `flash_limit` and the last 1,024 query rows
+     within the limit of their own largest, which the plain tail without
+     the last 64 keys must exceed; the group closed in a `finally`;
  12. drive co-design, the runtime loop, the compile service and the
      fleet, each with the counters at 0 just before it:
      `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
@@ -239,9 +262,10 @@ Phases:
      scan kernel's device ms in it;
  14. print a {"kernels": [...]} JSON line (the scan row also carries the
      gradient path's launches; every row carries phase 12's, by part; the
-     flash rows carry phase 11b's, 11c's and 11d's, the non-causal
-     launches and errors apart, and their times at the new shapes, the
-     training shape and the Function's backward), the
+     flash rows carry phase 11b's, 11c's, 11d's and 11e's, the
+     non-causal launches and errors apart, and their times at the new
+     shapes, the training shape and the Function's backward with its
+     bound), the
      smoke's total wall, the card line, and as the last line {"ok": true,
      "device": {...}}.
 
@@ -3242,6 +3266,10 @@ TRAIN_WEIGHTS = 1_235_814_400
 # forward, and remat="full"'s recompute in the backward)
 TRAIN_LAUNCHES_PER_STEP = TRAIN_MICRO * 16 * 2
 TRAIN_FLASH_SHAPE = (4, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64, 0, None)
+# the backward's operations over the forward's: five (query, key) products
+# of 2 * hd operations a visible pair (Q K^T, dV, dO V^T, dQ, dK) against
+# the forward's two
+FLASH_BWD_FACTOR = 2.5
 # the Function against autograd through the plain version on the card:
 # llama's training shape at B = 1, whisper's cross-attention (non-causal,
 # 128 queries to 1500 frames), mixtral's windowed shape at B = 1
@@ -3356,10 +3384,17 @@ def time_flash_backward(dev, card) -> dict:
                                       retain_graph=True)
     b1, l1 = time_ms(ours, 3, warm=1), time_ms(lib, 10)
     b2, l2 = time_ms(ours, 3, warm=1), time_ms(lib, 10)
+    # the bound counts the products attention's backward needs; the
+    # Function's first pass, which recomputes Q K^T for the running max
+    # and row sum (the forward saves no logsumexp), is its own cost
+    bound = FLASH_BWD_FACTOR * flash_work(TRAIN_FLASH_SHAPE, 2)[1] \
+        / BF16_FLOPS * 1e3
     out = {"fwd": fwd["mix"], "bwd_ms": (b1 + b2) / 2,
-           "sdpa_bwd_ms": (l1 + l2) / 2}
+           "sdpa_bwd_ms": (l1 + l2) / 2, "bwd_bound_ms": bound}
     log(f"time flash Function backward bf16 {TRAIN_FLASH_SHAPE[:6]}: "
-        f"{b1!r} / {b2!r} ms (plain torch, tiled), "
+        f"{b1!r} / {b2!r} ms (plain torch, tiled), bound {bound!r} ms "
+        f"(operations: {FLASH_BWD_FACTOR} x the forward's causal ones at "
+        f"989 TFLOP/s bf16), "
         f"scaled_dot_product_attention backward {l1!r} / {l2!r} ms "
         f"(library reference, not a port; ours / SDPA "
         f"{out['bwd_ms'] / out['sdpa_bwd_ms']!r}) [{card}]")
@@ -3684,6 +3719,305 @@ def train_path(dev, card) -> dict:
     log(f"train path walls (s): {walls!r}")
     return {**full, "func": func, "reduced_f32_launches": reduced_f32,
             "times": times}
+
+
+# phase 11e: the dry-run cells (arch, shape, multi-pod) and the mesh step
+# on the card at the 16x16 mesh's per-device batches
+MESH_CELLS = (("llama3.2-1b", "train_4k", False),
+              ("llama3.2-1b", "prefill_32k", False),
+              ("llama3.2-1b", "decode_32k", False),
+              ("qwen2-0.5b", "prefill_32k", True))
+MESH_ARCH = "llama3.2-1b"
+MESH_PREFILL = (2, 32768)       # prefill_32k: 32 / 16 data ranks
+MESH_DECODE = (8, 32768)        # decode_32k: 128 / 16, its window
+MESH_TRAIN = (2, 4096, 2)       # B, S, layers (full width)
+MESH_LOGITS_RTOL = 3e-2         # of the largest logit, the bf16 limit
+MESH_LOSS_RTOL = 1e-5
+# the train step starts past the warmup (1% of build_train's 10,000
+# steps), so its lr is the peak and the master moves
+MESH_TRAIN_STEP = 100
+# the train step against the step without a mesh, in bf16: the gradients
+# are bf16 products that cuBLAS may sum in another order under DTensor
+# (the loss is equal), so the gradient norm is held within one bf16 unit,
+# the first moment (0.1 x the clipped gradient) within FUNC_RTOL's one
+# part in 32 of each leaf's largest, and the master's step by its norm
+# within one bf16 unit: from zero moments AdamW's step is ~lr x the
+# gradient's sign, so an element whose gradient lies within rounding of 0
+# moves the other way (the elementwise master is printed, not checked;
+# 0.019 of a leaf's largest in the phase's first run on the card)
+MESH_GRAD_RTOL = 2.0 ** -8
+MESH_PHASE_S = 90.0             # the phase's budget
+# the tensor-core flash kernel against the plain version at the mesh
+# prefill's per-layer shape; the last MESH_FLASH_TAIL query rows (each
+# sees at least 31,745 keys, max|o| ~0.05 against ~4 in the first rows)
+# are also held to the limit of their own largest, and the control leaves
+# out the last MESH_FLASH_DROP keys (one of the kernel's key tiles): a
+# single key moves a late row by ~3e-4, under that limit (8.0e-4 on the
+# CPU at this seed; 64 keys move it by 5.0e-3)
+MESH_FLASH_SHAPE = (2, 32768, 32768, 32, 8, 64, 0, None)
+MESH_FLASH_TAIL = 1024
+MESH_FLASH_DROP = 64
+
+
+def dry_run_cells() -> dict:
+    """The dry-run cells of `MESH_CELLS` on fake tensors; raises if a
+    cell's flops x chips fall short of MODEL_FLOPS, a trip count is
+    unknown, or the chips are not 256 / 512."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape, multi_pod in MESH_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod)
+        wall = time.perf_counter() - t0
+        an, rl = rec["hlo_analysis"], rec["roofline"]
+        chips = round(rl["hlo_flops_global"] / an["flops"])
+        ok = (an["flops"] * chips >= rl["model_flops"]
+              and an["unknown_trip_counts"] == 0
+              and chips == (512 if multi_pod else 256))
+        log(f"dry run {arch} {shape} {rec['mesh']} ({chips} chips): "
+            f"compute {rl['compute_s']!r} s, memory {rl['memory_s']!r} s, "
+            f"collective {rl['collective_s']!r} s, bottleneck "
+            f"{rl['bottleneck']}, MODEL_FLOPS {rl['model_flops']!r}, "
+            f"flops/dev {an['flops']!r} (x chips / MODEL_FLOPS "
+            f"{an['flops'] * chips / rl['model_flops']!r}), MFU bound "
+            f"{rl['mfu']!r}, peak {rec['peak_bytes_per_device'] / 2**30!r} "
+            f"GiB/dev, wire {an['collective_wire_bytes']!r} B/dev "
+            f"{an['collective_by_type']!r}, dots {an['dot_count']}, lower "
+            f"{rec['lower_s']} s, fake run {rec['compile_s']} s, cell "
+            f"{wall:.1f} s (fake tensors, no device memory) "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"dry-run cell {arch} {shape} failed")
+        out[(arch, shape, rec["mesh"])] = rec
+    return out
+
+
+def mesh_step(cfg, mesh, shape, make_args, label: str) -> dict:
+    """The bundle of `shape` on the card's (1, 1) mesh, run once under the
+    analyzer with the flash counters read around it, and the same bundle
+    run on fake tensors; raises unless flops, dots and bytes are equal."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import hlo_analysis, steps
+    b = steps.build(cfg, mesh, shape, seed=SEED)
+    args = make_args(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = flash_counts()
+    t0 = time.perf_counter()
+    real, out, real_live = hlo_analysis.analyze(b.fn, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with FakeTensorMode():
+        bf = steps.build(cfg, mesh, shape, seed=SEED)
+        fargs = bf.inputs()
+        t0 = time.perf_counter()
+        fake, _, temp = hlo_analysis.analyze(bf.fn, *fargs)
+        fake_s = time.perf_counter() - t0
+        est = steps.local_bytes([list(fargs), bf.weights()]) + temp
+    same = all(real[k] == fake[k] for k in ("flops", "dot_count",
+                                            "mem_bytes"))
+    log(f"mesh {label}: real run {wall:.2f} s, flops {real['flops']!r} / "
+        f"fake {fake['flops']!r}, dots {real['dot_count']} / "
+        f"{fake['dot_count']}, mem_bytes {real['mem_bytes']!r} / "
+        f"{fake['mem_bytes']!r}, collectives {real['collective_count']} "
+        f"{'equal' if same else 'DIFFER'}; fake run {fake_s:.2f} s; peak "
+        f"estimate (fake: arguments + temp) {est / 2**30!r} GiB, "
+        f"torch.cuda.max_memory_allocated {peak / 2**30!r} GiB ("
+        f"{held / 2**30!r} GiB held before the step: the arguments, and "
+        f"the models and inputs of the comparison; the real run's live "
+        f"storages {real_live / 2**30!r} GiB)")
+    if not same:
+        raise RuntimeError(f"mesh {label}: real and fake counts differ")
+    return {"out": out, "launches": {str(k)[6:]: after[k] - before[k]
+                                     for k in after}}
+
+
+def check_mesh_flash(dev) -> float:
+    """The wrapper on seeded q, k, v at `MESH_FLASH_SHAPE` (one launch,
+    counted here, outside the mesh steps' counts) against
+    `flash_attention_plain` on the same inputs: the whole output within
+    `flash_limit`, the tail rows within the limit of their own largest,
+    which the plain tail without the last `MESH_FLASH_DROP` keys must
+    exceed. Returns the largest error."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    q, k, v = flash_inputs(MESH_FLASH_SHAPE, torch.bfloat16, dev)
+    S, T = MESH_FLASH_SHAPE[1], MESH_FLASH_TAIL
+    before = flash_counts()
+    got = flash_attention_fwd(q, k, v)
+    after = flash_counts()
+    want = flash_attention_plain(q, k, v)
+    short = flash_attention_plain(q[:, -T:], k, v, q_offset=S - T,
+                                  kv_len=S - MESH_FLASH_DROP)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tail = float((got[:, -T:].float() - want[:, -T:].float()).abs().max())
+    atol = flash_limit(torch.bfloat16, want)
+    tail_atol = flash_limit(torch.bfloat16, want[:, -T:])
+    moved = float((short.float() - want[:, -T:].float()).abs().max())
+    routed = (after[torch.bfloat16] == before[torch.bfloat16] + 1
+              and after[torch.float32] == before[torch.float32])
+    ok = (routed and bool(torch.isfinite(got).all()) and err <= atol
+          and tail <= tail_atol < moved)
+    log(f"check flash_attention_tc bf16 at the mesh prefill's shape "
+        f"{MESH_FLASH_SHAPE[:6]}: max|do| vs plain {err!r} (limit "
+        f"{atol!r}); the last {T} query rows {tail!r} (limit {tail_atol!r}"
+        f", the plain tail without the last {MESH_FLASH_DROP} keys moves "
+        f"by {moved!r}), {'one launch' if routed else 'WRONG KERNEL'} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("flash_attention check at the mesh prefill's "
+                           "shape failed")
+    return err
+
+
+def mesh_path(dev, card) -> dict:
+    """Phase 11e: the dry-run cells, then the mesh step on the card (see
+    the module docstring). Returns the tensor-core flash launches of the
+    mesh steps by kind."""
+    import dataclasses as dc
+    import socket
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import tree_leaves
+    t_phase = time.perf_counter()
+    dry_run_cells()
+    cfg = get_config(MESH_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    M.open_group(1, backend="nccl" if dev.type == "cuda" else "gloo",
+                 init_method=f"tcp://localhost:{port}")
+    launches = {}
+    try:
+        mesh = M.make_test_mesh(1, 1, device_type=dev.type)
+        plain = Model(cfg, device=dev, seed=SEED)
+        # prefill
+        B, S = MESH_PREFILL
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=dev, dtype=torch.int32)
+        r = mesh_step(cfg, mesh, ShapeConfig("mesh_prefill", S, B, "prefill"),
+                      lambda b: b.shard({"tokens": tokens}), f"prefill B={B} "
+                      f"S={S}")
+        want = plain.prefill({"tokens": tokens})[0]
+        got = r["out"][0].full_tensor()
+        err = float((got - want).abs().max() / want.abs().max())
+        launches["prefill"] = r["launches"]
+        del r, got, want
+        torch.cuda.empty_cache()
+        ok = err <= MESH_LOGITS_RTOL and launches["prefill"] == {
+            "bfloat16": cfg.n_layers, "float32": 0}
+        log(f"check mesh prefill: logits vs no mesh {err!r} of the largest "
+            f"(limit {MESH_LOGITS_RTOL}), flash launches "
+            f"{launches['prefill']} (want {cfg.n_layers} bf16) "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("mesh prefill check failed")
+        # the kernel at that prefill's shape against the plain version (the
+        # step without a mesh launches the same kernel)
+        flash_err = check_mesh_flash(dev)
+        torch.cuda.empty_cache()
+        # decode from a seeded cache
+        B, W = MESH_DECODE
+        cache = {k: torch.randn((cfg.n_layers, B, W, cfg.n_kv_heads,
+                                 cfg.hd()), generator=gen, device=dev,
+                                dtype=torch.bfloat16) for k in ("k", "v")}
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos = torch.randint(W // 2, W, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        r = mesh_step(cfg, mesh, ShapeConfig("mesh_decode", W, B, "decode"),
+                      lambda b: b.shard({k: v.clone() for k, v in
+                                         cache.items()}, tok, pos),
+                      f"decode B={B} W={W}")
+        want, want_cache = plain.decode_step(cache, tok, pos)
+        got, got_cache = r["out"]
+        err = float((got.full_tensor() - want).abs().max()
+                    / want.abs().max())
+        rows = max(float((got_cache[k].full_tensor() - want_cache[k]).abs()
+                         .max() / want_cache[k].abs().max())
+                   for k in ("k", "v"))
+        launches["decode"] = r["launches"]
+        del r, got, got_cache, want, want_cache, cache
+        torch.cuda.empty_cache()
+        ok = max(err, rows) <= MESH_LOGITS_RTOL and launches[
+            "decode"] == {"bfloat16": 0, "float32": 0}
+        log(f"check mesh decode: logits vs no mesh {err!r} of the largest, "
+            f"the written caches {rows!r} of their largest (limit "
+            f"{MESH_LOGITS_RTOL}), flash launches {launches['decode']} "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("mesh decode check failed")
+        del plain
+        torch.cuda.empty_cache()
+        # one train step at full width, 2 layers
+        B, S, L = MESH_TRAIN
+        cfg2 = dc.replace(cfg, n_layers=L)
+        batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        model2 = Model(cfg2, device=dev, seed=SEED)
+        tb = steps.build_train(cfg2)
+        state = tb.init_state(model2)
+        state["step"].fill_(MESH_TRAIN_STEP)
+        new0, met0 = tb.step(state, batch)
+        r = mesh_step(cfg2, mesh, ShapeConfig("mesh_train", S, B, "train"),
+                      lambda b: b.shard(state, batch),
+                      f"train B={B} S={S} {L} layers")
+        new, met = r["out"]
+        loss_rel, norm_rel = (abs(float(met[k].full_tensor())
+                                  - float(met0[k])) / abs(float(met0[k]))
+                              for k in ("loss", "grad_norm"))
+        mu_rel = max(float((g.full_tensor() - w).abs().max()
+                           / w.abs().max())
+                     for g, w in zip(tree_leaves(new["opt"]["mu"]),
+                                     tree_leaves(new0["opt"]["mu"])))
+        pairs = list(zip(tree_leaves(new["params"]),
+                         tree_leaves(new0["params"]),
+                         tree_leaves(state["params"])))
+        # the norm of each step over the whole master, and (printed) the
+        # largest elementwise gap of a leaf, of its largest
+        step = math.sqrt(sum(float(((g.full_tensor() - s0) ** 2).sum())
+                             for g, _, s0 in pairs))
+        step0 = math.sqrt(sum(float(((w - s0) ** 2).sum())
+                              for _, w, s0 in pairs))
+        prel = max(float((g.full_tensor() - w).abs().max()
+                         / w.abs().max()) for g, w, _ in pairs)
+        lr = float(met0["lr"])
+        launches["train"] = r["launches"]
+        want_launches = {"bfloat16": 2 * L, "float32": 0}  # fwd, remat
+        del r, model2, tb, met0, new0, new, met, state, pairs
+        torch.cuda.empty_cache()
+        ok = (loss_rel <= MESH_LOSS_RTOL and norm_rel <= MESH_GRAD_RTOL
+              and mu_rel <= FUNC_RTOL[torch.bfloat16] and lr > 0
+              and step0 > 0 and abs(step / step0 - 1) <= MESH_GRAD_RTOL
+              and launches["train"] == want_launches)
+        log(f"check mesh train from step {MESH_TRAIN_STEP} (lr {lr!r}) vs "
+            f"no mesh: loss {loss_rel!r} (limit {MESH_LOSS_RTOL}), "
+            f"grad_norm {norm_rel!r} (limit {MESH_GRAD_RTOL}), first "
+            f"moment {mu_rel!r} of each leaf's largest (limit "
+            f"{FUNC_RTOL[torch.bfloat16]}), the master's step norm {step!r} "
+            f"vs {step0!r} (limit {MESH_GRAD_RTOL} relative; the master "
+            f"elementwise {prel!r} of each leaf's largest, not checked), "
+            f"flash launches {launches['train']} (want {want_launches}) "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("mesh train check failed")
+    finally:
+        M.close_group()
+    wall = time.perf_counter() - t_phase
+    log(f"mesh phase wall {wall!r} s (budget {MESH_PHASE_S} s"
+        f"{'' if wall <= MESH_PHASE_S else ', OVER'}) [{card}]")
+    return {"launches": {k: v["bfloat16"] for k, v in launches.items()},
+            "flash_err": flash_err}
 
 
 CODESIGN_ARCHS = ("qwen2-0.5b", "llama3.2-1b", "llama3.2-3b", "minicpm-2b")
@@ -4586,6 +4920,12 @@ def main() -> int:
     # checkpoints, serve from the checkpoint, the backward's timing
     trained = train_path(dev, card)
 
+    phase("11e")
+    # -- 11e. the mesh layer: dry-run cells on fake tensors, then the mesh
+    # step on a one-rank group over the card, each held to its fake twin
+    # and to the step without a mesh
+    meshed = mesh_path(dev, card)
+
     phase("12")
     # -- 12. co-design, the measured loop at full width, the compile
     # service and the fleet on the card, each counted and held to the CPU;
@@ -4737,9 +5077,15 @@ def main() -> int:
                                         "library_ms", "bound_ms",
                                         "bound_by")},
         train_function_bwd_ms=trained["times"]["bwd_ms"],
+        train_function_bwd_bound_ms=trained["times"]["bwd_bound_ms"],
         train_sdpa_bwd_ms=trained["times"]["sdpa_bwd_ms"],
         train_step_device_fwd_ms=trained["profile"]["flash_fwd_ms"],
         train_step_device_bwd_ms=trained["profile"]["flash_bwd_ms"])
+    # phase 11e: the mesh steps' launches (prefill 16, decode 0, a
+    # 2-layer train step 4)
+    rows["flash_attention_tc"].update(
+        mesh_launches=meshed["launches"],
+        mesh_prefill_shape_max_abs_err=meshed["flash_err"])
     rows["flash_attention"].update(
         train_reduced_launches=trained["reduced_f32_launches"],
         train_grad_max_rel_err=trained["func"]["worst"][torch.float32])
@@ -4768,7 +5114,9 @@ def main() -> int:
             or served_ssm["launches"] != 0 or family_11c_launches <= 0 \
             or served_audio["noncausal"] != 64 * served_audio["prefills"] \
             or trained["launches"] != TRAIN_STEPS * TRAIN_LAUNCHES_PER_STEP \
-            or trained["reduced_f32_launches"] <= 0:
+            or trained["reduced_f32_launches"] <= 0 \
+            or meshed["launches"]["prefill"] <= 0 \
+            or meshed["launches"]["train"] <= 0:
         log("FAILED: a kernel of a path was never launched")
         return 1
     log(f"smoke total wall: {time.perf_counter() - t_smoke!r} s [{card}]")

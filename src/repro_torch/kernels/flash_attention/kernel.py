@@ -24,8 +24,12 @@ Which kernel serves which dtype (`route` decides, from q's dtype):
   P V, cp.async K/V staging), launched by `flash_attention_f32`, counted
   in `flash_attention_f32.launches`.
 
-`flash_attention_fwd` launches one of them for CUDA tensors and raises if
-the arguments, the build or the launch fail; CPU tensors take
+`flash_attention_fwd` is one torch operator,
+`repro_torch::flash_attention_fwd` (so a dispatch mode, the dry run's
+analyzer, sees each call once): it launches one of them for CUDA tensors
+and raises if the arguments, the build or the launch fail; fake and meta
+tensors (a dry run) get the output's shape and dtype and launch nothing,
+since they hold no data; CPU tensors take
 `flash_attention_plain`, the blocked pure-torch attention of
 `repro/models/attention.py:75-165` (chunks of `chunk_q` queries and
 `chunk_kv` keys, the same float32 online softmax and the same rounding of
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -180,13 +185,10 @@ flash_attention_tc.launches = flash_attention_tc.noncausal_launches = 0
 flash_attention_f32.launches = flash_attention_f32.noncausal_launches = 0
 
 
-def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
-          chunk_kv=1024):
-    """The kernel wrapper that serves q's dtype (`flash_attention_tc` for
-    bfloat16, `flash_attention_f32` for float32) and its int arguments
-    (B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, window, chunk), after
-    the checks both kernels need; raises on what neither takes. Does not
-    look at the device, so that it runs on CPU tensors too."""
+def _route_args(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
+                chunk_kv=1024) -> tuple:
+    """The checks of `route` that read no data (shapes, dtypes, devices)
+    and the kernels' int arguments."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention takes q (B, Sq, H, hd) and k, v "
@@ -217,36 +219,100 @@ def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    # one chunk of Skv keys is the same as any longer one, and fits an int
+    return (B, Sq, Skv, H, K, hd, int(q_offset), kv_len, int(bool(causal)),
+            int(window), min(int(chunk_kv), Skv))
+
+
+def route(q, k, v, q_offset=0, *, causal=True, window=0, kv_len=None,
+          chunk_kv=1024):
+    """The kernel wrapper that serves q's dtype (`flash_attention_tc` for
+    bfloat16, `flash_attention_f32` for float32) and its int arguments
+    (B, Sq, Skv, H, K, hd, q_offset, kv_len, causal, window, chunk), after
+    the checks both kernels need; raises on what neither takes. Does not
+    look at the device, so that it runs on CPU tensors too."""
+    args = _route_args(q, k, v, q_offset, causal=causal, window=window,
+                       kv_len=kv_len, chunk_kv=chunk_kv)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
     if any(x.data_ptr() % ALIGN for x in (q, k, v)):
         raise ValueError(f"flash_attention kernels take q, k, v aligned to "
                          f"{ALIGN} bytes")
-    # one chunk of Skv keys is the same as any longer one, and fits an int
-    args = (B, Sq, Skv, H, K, hd, int(q_offset), kv_len, int(bool(causal)),
-            int(window), min(int(chunk_kv), Skv))
     kern = (flash_attention_tc if q.dtype == torch.bfloat16
             else flash_attention_f32)
     return kern, args
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd",
+                         mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_offset: int, causal: bool, window: int,
+                  kv_len: Optional[int], chunk_q: int,
+                  chunk_kv: int) -> torch.Tensor:
+    """The flash entry as one torch operator, so that a dispatch mode sees
+    each call once (`launch.hlo_analysis`). CPU tensors: the plain
+    version."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, kv_len=kv_len,
+                                 chunk_q=chunk_q, chunk_kv=chunk_kv)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, q_offset, causal, window, kv_len, chunk_q,
+                    chunk_kv):
+    kern, args = route(q, k, v, q_offset, causal=causal, window=window,
+                       kv_len=kv_len, chunk_kv=chunk_kv)
+    return kern(q, k, v, args)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_offset, causal, window, kv_len, chunk_q,
+                    chunk_kv):
+    """Fake and meta tensors hold no data: the output's shape and dtype,
+    after the checks a CUDA launch makes on shapes; nothing launches."""
+    if q.device.type == "cuda":
+        _route_args(q, k, v, q_offset, causal=causal, window=window,
+                    kv_len=kv_len, chunk_kv=chunk_kv)
+    return q.new_empty(q.shape)
 
 
 def flash_attention_fwd(q, k, v, q_offset=0, *, causal=True, window=0,
                         kv_len=None, chunk_q=512, chunk_kv=1024):
     """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd), contiguous, all float32 or
     all bfloat16 -> (B, Sq, H, hd). The one place that chooses between the
-    kernels and the plain version: CPU tensors run `flash_attention_plain`
-    (with `window`, `chunk_q` and `chunk_kv`), CUDA tensors launch the
-    kernel `route` picks for their dtype, which picks its own tiles and
-    skips the key tiles that lie wholly before every query's `window`; the
-    bf16 kernel refreshes the running max once per `chunk_kv` keys, the
-    float32 one once per `F32_KEY_TILE` keys."""
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, kv_len=kv_len,
-                                     chunk_q=chunk_q, chunk_kv=chunk_kv)
-    kern, args = route(q, k, v, q_offset, causal=causal, window=window,
-                       kv_len=kv_len, chunk_kv=chunk_kv)
-    return kern(q, k, v, args)
+    kernels and the plain version, through the operator
+    `repro_torch::flash_attention_fwd`: CPU tensors run
+    `flash_attention_plain` (with `window`, `chunk_q` and `chunk_kv`), CUDA
+    tensors launch the kernel `route` picks for their dtype, which picks
+    its own tiles and skips the key tiles that lie wholly before every
+    query's `window`; the bf16 kernel refreshes the running max once per
+    `chunk_kv` keys, the float32 one once per `F32_KEY_TILE` keys. Fake
+    and meta tensors (a dry run) get the output's shape and dtype and
+    launch nothing."""
+    return _flash_fwd_op(q, k, v, int(q_offset), bool(causal), int(window),
+                         None if kv_len is None else int(kv_len),
+                         int(chunk_q), int(chunk_kv))
+
+
+def visited_work(Sq, Skv, *, q_offset=0, causal=True, window=0,
+                 kv_len=None, chunk_q=512, chunk_kv=1024) -> tuple:
+    """(pairs, tiles): the (chunk_q, chunk_kv) tiles that hold a (query,
+    key) pair some query may see, and the pairs in them, whole tiles
+    counted: the work of one head's blocked flash attention
+    (`launch.hlo_analysis` counts 4 * hd operations a pair and two
+    products a tile)."""
+    kv_len = Skv if kv_len is None else kv_len
+    cq, ckv = min(chunk_q, Sq), min(chunk_kv, Skv)
+    pairs = tiles = 0
+    for q0 in range(0, Sq, cq):
+        n_q = min(cq, Sq - q0)
+        first, last = q_offset + q0, q_offset + q0 + n_q - 1
+        for k0 in range(0, Skv, ckv):
+            n_k = min(ckv, Skv - k0)
+            if _visited(k0, n_k, first, last, causal, window, kv_len):
+                pairs += n_q * n_k
+                tiles += 1
+    return pairs, tiles
 
 
 def _visited(k0, n_k, q_first, q_last, causal, window, kv_len):

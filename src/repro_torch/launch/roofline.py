@@ -4,9 +4,9 @@
   memory term     = HLO_bytes / (chips x HBM bw)
   collective term = wire bytes / (chips x link bw)
 
-The analysis dict's flops, bytes and wire bytes are PER-DEVICE, so the
-terms divide by per-chip rates directly. Producing that dict from a
-compiled program (`hlo_analysis`) waits for ROADMAP Queue 1 item 13d.
+The analysis dict's flops, bytes and wire bytes are PER-DEVICE (one
+rank's program, `hlo_analysis`), so the terms divide by per-chip rates
+directly.
 
 PEAK_FLOPS, HBM_BW and LINK_BW are the reference's parameters of its
 analytic target pod (256 chips of a TPU v5e class), on which every

@@ -22,6 +22,10 @@ Layers run as a Python loop.
 
 API (the reference's, with the parameters held by the module):
   Model(cfg, device=, seed=)                -> seeded truncated-normal init
+  Model(cfg, ..., mesh=, rules=)            -> the same weights as DTensors
+                                               on a DeviceMesh (dense only)
+  param_specs(), cache_specs()              -> the reference's logical-axis
+                                               trees
   loss(batch, params=None)                  -> (loss, {"ce", "aux"})
   prefill(batch, W)                         -> (logits_last, cache, pos)
   decode_step(cache, token, pos)            -> (logits, cache)
@@ -45,6 +49,13 @@ updates in place:
   audio       {"k", "v": (L, B, W, K, hd), "xk", "xv": (L, B, F, K, hd)},
               the encoder's K/V per decoder layer, written by prefill.
 
+Under a mesh (`launch.steps.build` makes it) each weight is a DTensor
+placed by the rules over `param_specs` (a stacked leaf's spec less its
+layer axis), and `prefill`, `decode_step` and `loss` run in the sharding
+context (`models.common.sharding_ctx`), where plain tensors count as
+replicated. Only the dense family runs on a mesh; the others raise
+NotImplementedError naming ROADMAP Queue 1 item 13e.
+
 Training: `loss` runs the train-mode forward of every family (the
 reference's `Model.loss`), differentiably. `params`, if given, is the
 reference's STACKED parameter tree (`param_tree`: "embed",
@@ -62,18 +73,23 @@ Mamba2 and mLSTM layers, not the shared attention block or the sLSTM).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, ssm, transformer as tfm, xlstm
-from repro_torch.models.common import chunked_softmax_xent, dense_init, \
-    dtype_of, embed, norm, norm_init, param, sinusoid_at, \
-    sinusoidal_positions
+from repro_torch.models.common import chunked_softmax_xent, \
+    current_mesh, dense_init, dtype_of, embed, gathered, logical_to_pspec, \
+    norm, norm_init, norm_specs, param, shard_act, sharding_ctx, \
+    sinusoid_at, sinusoidal_positions, to_placements
+
+MESH_FAMILIES = ("dense",)
+MESH_PENDING = ("the mesh paths of the moe, hybrid, ssm, audio and vlm "
+                "families wait for ROADMAP Queue 1 item 13e")
 
 KV_FAMILIES = ("dense", "vlm", "moe")
 FAMILIES = KV_FAMILIES + ("hybrid", "ssm", "audio")
@@ -190,12 +206,57 @@ class _Weights:
                     else _View(v) if isinstance(v, dict) else v)
 
 
+def _add_layer_axis(tree):
+    return {k: (_add_layer_axis(v) if isinstance(v, dict)
+                else ("layers",) + tuple(v)) for k, v in tree.items()}
+
+
+def param_specs(cfg) -> dict:
+    """The logical-axis tree of the stacked parameter tree (the
+    reference's `Model.param_specs`)."""
+    p = {"embed": ("vocab", "embed_fsdp"), "final_norm": norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed_fsdp", "vocab")
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        p["blocks"] = _add_layer_axis(tfm.dense_block_specs(cfg))
+    elif fam == "moe":
+        p["blocks"] = _add_layer_axis(tfm.moe_block_specs(cfg))
+    elif fam == "hybrid":
+        p["mamba"] = _add_layer_axis(ssm.specs(cfg))
+        p["shared_attn"] = tfm.dense_block_specs(cfg)
+    elif fam == "ssm":
+        p["mlstm"] = _add_layer_axis(xlstm.m_specs(cfg))
+        p["slstm"] = _add_layer_axis(xlstm.s_specs(cfg))
+    elif fam == "audio":
+        p["enc"] = _add_layer_axis(tfm.enc_block_specs(cfg))
+        p["enc_norm"] = norm_specs(cfg)
+        p["dec"] = _add_layer_axis(tfm.xdec_block_specs(cfg))
+    return p
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 class Model(nn.Module):
-    def __init__(self, cfg, *, device="cuda", seed=0):
+    def __init__(self, cfg, *, device="cuda", seed=0, mesh=None,
+                 rules=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
+        if mesh is not None and cfg.family not in MESH_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: a mesh takes the dense family only; "
+                f"{MESH_PENDING}")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and rules is None:
+            from repro_torch.launch.sharding import make_rules
+            rules = make_rules(mesh)
+        self.rules = rules
         dev = torch.device(device)
         gen = None if dev.type == "meta" else \
             torch.Generator(device=dev).manual_seed(seed)
@@ -227,6 +288,51 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = param(dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), dt, device=dev))
+        if mesh is not None:
+            self._place()
+
+    def _place(self):
+        """Every weight as a DTensor on the mesh, placed by the rules over
+        `param_specs` (a stacked leaf's spec less its layer axis, which
+        the rules never shard); each rank keeps its own slice of the
+        weights it made from the seed, so nothing is sent."""
+        from torch.distributed.tensor import distribute_tensor
+        specs = self.param_specs()
+        depths = stack_depths(self.cfg)
+        for name, p in list(self.named_parameters()):
+            head, *rest = name.split(".")
+            if head in depths:
+                axes = _leaf(specs, [head] + rest[1:])
+                shape = (depths[head],) + tuple(p.shape)
+                spec = logical_to_pspec(axes, self.rules, shape=shape,
+                                        mesh=self.mesh)[1:]
+            else:
+                axes = _leaf(specs, name.split("."))
+                spec = logical_to_pspec(axes, self.rules, shape=p.shape,
+                                        mesh=self.mesh)
+            t = distribute_tensor(p.detach(), self.mesh,
+                                  to_placements(spec, self.mesh),
+                                  src_data_rank=None)
+            owner = self.get_submodule(name.rpartition(".")[0]) \
+                if "." in name else self
+            setattr(owner, name.rpartition(".")[2], param(t))
+
+    def _ctx(self):
+        """The sharding context of this model's mesh and rules, where plain
+        tensors (positions, masks) count as replicated; nothing without a
+        mesh or inside the context already (torch's implicit_replication
+        does not nest)."""
+        if self.mesh is None or current_mesh() is self.mesh:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        stack = contextlib.ExitStack()
+        stack.enter_context(sharding_ctx(self.mesh, self.rules))
+        stack.enter_context(implicit_replication())
+        return stack
+
+    def param_specs(self) -> dict:
+        return param_specs(self.cfg)
 
     @property
     def device(self) -> torch.device:
@@ -264,7 +370,7 @@ class Model(nn.Module):
     # embedding helpers
     # ------------------------------------------------------------------
     def _embed(self, tokens):
-        return F.embedding(tokens, self.embed)
+        return shard_act(embed(tokens, self.embed), "batch", "seq", None)
 
     def _unembed_w(self):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -272,7 +378,7 @@ class Model(nn.Module):
     def _logits_last(self, h_last):
         """h_last: (B, d) -> (B, V) float32: float32 sums of the working
         dtype's products, as the reference's preferred_element_type."""
-        return h_last.float() @ self._unembed_w().float()
+        return h_last.float() @ gathered(self._unembed_w()).float()
 
     # ------------------------------------------------------------------
     # loss (train step forward)
@@ -287,6 +393,10 @@ class Model(nn.Module):
         weights of `params` (a stacked tree, see the module docstring)
         if given, else a copy of the module's own in that layout (which
         no gradient reaches)."""
+        with self._ctx():
+            return self._loss(batch, params)
+
+    def _loss(self, batch, params):
         cfg = self.cfg
         W = _Weights(cfg, param_tree(self) if params is None else params)
         tokens, labels = batch["tokens"], batch["labels"]
@@ -294,7 +404,7 @@ class Model(nn.Module):
         dt = W.embed.dtype
         dev = W.embed.device
         aux = torch.zeros((), dtype=torch.float32, device=dev)
-        h = embed(tokens, W.embed)
+        h = shard_act(embed(tokens, W.embed), "batch", "seq", None)
         if cfg.family == "audio":
             e = batch["frames"].to(dt)
             e = e + sinusoidal_positions(e.shape[1], cfg.d_model,
@@ -370,12 +480,39 @@ class Model(nn.Module):
         return (self.cfg.kv_dtype == "int8" and self.cfg.sliding_window == 0
                 and self.cfg.family in KV_FAMILIES)
 
-    def init_cache(self, B, W):
+    def cache_specs(self) -> dict:
+        """The logical-axis tree of `init_cache`'s dict (the reference's)."""
+        fam = self.cfg.family
+        kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        sc = ("layers", "batch", "kv_seq", "kv_heads")
+        if fam in KV_FAMILIES:
+            if self._int8_kv():
+                return {"k": kv, "v": kv, "ksc": sc, "vsc": sc}
+            return {"k": kv, "v": kv}
+        if fam == "audio":
+            return {"k": kv, "v": kv, "xk": kv, "xv": kv}
+        if fam == "hybrid":
+            return {"conv": ("layers", "batch", None, "conv_dim"),
+                    "ssm": ("layers", "batch", "ssm_heads", None, None),
+                    "k": kv, "v": kv}
+        return {"mconv": ("layers", "batch", None, "inner"),
+                "mC": ("layers", "batch", "heads", None, None),
+                "mN": ("layers", "batch", "heads", None),
+                "mM": ("layers", "batch", "heads"),
+                "sh": ("layers", "batch", "embed"),
+                "sc": ("layers", "batch", "embed"),
+                "sn": ("layers", "batch", "embed"),
+                "sm": ("layers", "batch", "embed")}
+
+    def init_cache(self, B, W, device=None):
+        """The zeroed cache dict of B slots and W rows, on the model's
+        device or `device` ("meta": shapes only)."""
         cfg = self.cfg
         dt = dtype_of(cfg)
         K, hd, L = cfg.n_kv_heads, cfg.hd(), cfg.n_layers
+        dev = self.device if device is None else device
         zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
-                                                 device=self.device)
+                                                 device=dev)
         if cfg.family == "hybrid":
             di, nh, cdim = ssm.dims(cfg)
             napp = L // cfg.attn_every
@@ -389,7 +526,7 @@ class Model(nn.Module):
             n_m, n_s = xlstm_depths(cfg)
             f32 = torch.float32
             full = lambda shape: torch.full(shape, -1e30, dtype=f32,
-                                            device=self.device)
+                                            device=dev)
             return {"mconv": zeros((n_m, B, 3, inner), dt),
                     "mC": zeros((n_m, B, nh, hq, hv), f32),
                     "mN": zeros((n_m, B, nh, hq), f32),
@@ -417,6 +554,10 @@ class Model(nn.Module):
     # the last position. W (cache window) == padded cache length.
     # ------------------------------------------------------------------
     def prefill(self, batch, W=None):
+        with self._ctx():
+            return self._prefill(batch, W)
+
+    def _prefill(self, batch, W=None):
         cfg = self.cfg
         tokens = batch["tokens"]
         B = tokens.shape[0]
@@ -433,6 +574,8 @@ class Model(nn.Module):
             if W_eff < S:
                 raise ValueError(f"cache window {W_eff} is shorter than "
                                  f"the prompt ({S} tokens)")
+            if W_eff == S:
+                return torch.stack(rows)
             out = rows[0].new_zeros((len(rows), B, W_eff) + rows[0].shape[2:])
             out[:, :, :S] = torch.stack(rows)
             return out
@@ -538,6 +681,10 @@ class Model(nn.Module):
     def decode_step(self, cache, token, pos):
         """token: (B, 1) int32; pos: (B,) int32. Returns (logits, cache),
         the cache updated in place."""
+        with self._ctx():
+            return self._decode_step(cache, token, pos)
+
+    def _decode_step(self, cache, token, pos):
         cfg = self.cfg
         x = self._embed(token)
         if cfg.family == "hybrid":

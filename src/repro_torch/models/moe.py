@@ -17,9 +17,10 @@ their gradients meet in a sum over k, in order, with no scattered add.
 T counts every row the caller passes, so capacity drops depend on the
 batch, as in the reference.
 
-The expert-parallel and tensor-parallel shard_map paths of the reference
-(`_apply_small_t`, the EP/TP specs) are XLA mesh code and wait for the
-launchers (ROADMAP Queue 1 item 13d).
+`specs` is the reference's logical-axis tree of the weights. The
+expert-parallel and tensor-parallel shard_map paths of the reference
+(`moe.py:123,153`) wait for ROADMAP Queue 1 item 13e; `Model(cfg,
+mesh=...)` refuses the family until then.
 """
 from __future__ import annotations
 
@@ -50,6 +51,15 @@ class MoE(nn.Module):
 
 def init(gen, cfg, device="cuda") -> MoE:
     return MoE(cfg, gen, device=device)
+
+
+def specs(cfg):
+    return {
+        "router": ("embed", None),
+        "w1": ("experts", "embed", "expert_mlp"),
+        "w3": ("experts", "embed", "expert_mlp"),
+        "w2": ("experts", "expert_mlp", "embed"),
+    }
 
 
 def _route(x32, router_w, k):

@@ -72,6 +72,19 @@ class Mamba2(nn.Module):
         self.w_out = param(dense_init(gen, (di, d), dt, device=device))
 
 
+def specs(cfg):
+    return {
+        "w_in": ("embed", "inner_all"),
+        "conv_w": (None, "conv_dim"),
+        "conv_b": ("conv_dim",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("inner",),
+        "w_out": ("inner", "embed"),
+    }
+
+
 def init(gen, cfg, device="cuda") -> Mamba2:
     return Mamba2(cfg, gen, device=device)
 

@@ -12,8 +12,8 @@ import math
 from torch import nn
 
 from repro_torch.models import attention, moe
-from repro_torch.models.common import act_fn, dense_init, dtype_of, norm, \
-    norm_init, param
+from repro_torch.models.common import act_fn, dense_init, dtype_of, \
+    gathered, norm, norm_init, norm_specs, param, shard_act
 
 
 # ---------------------------------------------------------------------------
@@ -37,10 +37,16 @@ def mlp_init(gen, cfg, device="cuda", d_ff=None) -> MLP:
     return MLP(cfg, gen, device=device, d_ff=d_ff)
 
 
+def mlp_specs(cfg):
+    return {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+            "w2": ("mlp", "embed")}
+
+
 def mlp_apply(p, x, cfg):
     act = act_fn(cfg.act)
-    h = act(x @ p.w1) * (x @ p.w3)
-    return h @ p.w2
+    w1, w3, w2 = gathered(p.w1), gathered(p.w3), gathered(p.w2)
+    h = shard_act(act(x @ w1) * (x @ w3), "batch", "seq", "mlp")
+    return shard_act(h @ w2, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +66,15 @@ class DenseBlock(nn.Module):
 
 def dense_block_init(gen, cfg, device="cuda") -> DenseBlock:
     return DenseBlock(cfg, gen, device=device)
+
+
+def dense_block_specs(cfg):
+    return {
+        "n1": norm_specs(cfg),
+        "attn": attention.specs(cfg),
+        "n2": norm_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
 
 
 def dense_block_apply(p, x, positions, cfg):
@@ -110,6 +125,18 @@ def moe_block_init(gen, cfg, device="cuda") -> MoEBlock:
     return MoEBlock(cfg, gen, device=device)
 
 
+def moe_block_specs(cfg):
+    p = {
+        "n1": norm_specs(cfg),
+        "attn": attention.specs(cfg),
+        "n2": norm_specs(cfg),
+        "moe": moe.specs(cfg),
+    }
+    if cfg.moe_dense_ff:
+        p["dense_mlp"] = mlp_specs(cfg)
+    return p
+
+
 def _moe_ffn(p, h, cfg):
     y, aux = moe.apply(p.moe, h, cfg)
     if cfg.moe_dense_ff:
@@ -153,6 +180,9 @@ def enc_block_init(gen, cfg, device="cuda") -> DenseBlock:
     return DenseBlock(cfg, gen, device=device)
 
 
+enc_block_specs = dense_block_specs
+
+
 def enc_block_apply(p, x, cfg):
     a, _, _ = attention.attend_train(p.attn, norm(x, p.n1, cfg), None, cfg,
                                      use_rope=False, causal=False)
@@ -180,6 +210,17 @@ class XDecBlock(nn.Module):
 
 def xdec_block_init(gen, cfg, device="cuda") -> XDecBlock:
     return XDecBlock(cfg, gen, device=device)
+
+
+def xdec_block_specs(cfg):
+    return {
+        "n1": norm_specs(cfg),
+        "attn": attention.specs(cfg),
+        "n2": norm_specs(cfg),
+        "xattn": attention.specs(cfg),
+        "n3": norm_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
 
 
 def xdec_block_apply(p, x, enc_out, positions, cfg):

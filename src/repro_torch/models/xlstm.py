@@ -90,6 +90,22 @@ class MLSTM(nn.Module):
         self.w_down = param(dense_init(gen, (inner, d), dt, device=device))
 
 
+def m_specs(cfg):
+    return {
+        "w_up": ("embed", "inner"),
+        "w_z": ("embed", "inner"),
+        "conv_w": (None, "inner"),
+        "conv_b": ("inner",),
+        "wq": ("inner", "heads", "head_dim"),
+        "wk": ("inner", "heads", "head_dim"),
+        "w_if": ("inner", "heads", None),
+        "b_if": ("heads", None),
+        "gn": ("heads", None),
+        "skip": ("inner",),
+        "w_down": ("inner", "embed"),
+    }
+
+
 def m_init(gen, cfg, device="cuda") -> MLSTM:
     return MLSTM(cfg, gen, device=device)
 
@@ -263,6 +279,17 @@ class SLSTM(nn.Module):
         self.gn = param(torch.ones((d,), dtype=dt, device=device))
         self.w_ff1 = param(dense_init(gen, (d, 2 * ff), dt, device=device))
         self.w_ff2 = param(dense_init(gen, (ff, d), dt, device=device))
+
+
+def s_specs(cfg):
+    return {
+        "w": ("embed", None, "inner"),
+        "r": ("heads", None, None, None),
+        "b": (None, "inner"),
+        "gn": ("embed",),
+        "w_ff1": ("embed", "mlp"),
+        "w_ff2": ("mlp", "embed"),
+    }
 
 
 def s_init(gen, cfg, device="cuda") -> SLSTM:

@@ -62,7 +62,9 @@ def test_port_has_modules():
                  "optim/schedules.py", "optim/compression.py",
                  "checkpoint/__init__.py", "checkpoint/ckpt.py",
                  "training/__init__.py", "training/loop.py",
-                 "launch/steps.py", "launch/train.py"):
+                 "launch/steps.py", "launch/train.py", "launch/mesh.py",
+                 "launch/sharding.py", "launch/hlo_analysis.py",
+                 "launch/dryrun.py", "launch/report.py"):
         assert need in names
     for src in ("fused_newton", "gauss_jordan", "gc_array_step",
                 "flash_attention", "flash_attention_tc"):

@@ -988,3 +988,49 @@ def test_reduced_train_step_on_the_card(cuda):
     for a, b in zip(tree_leaves(card["params"]),
                     tree_leaves(host["params"])):
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+def test_mesh_prefill_on_the_card_launches_the_kernel(cuda):
+    """The prefill bundle on a (1, 1) DeviceMesh over a one-rank nccl
+    group (reduced llama in bf16, B = 2, S = 256): every layer launches
+    the tensor-core flash kernel, the logits match the model's without a
+    mesh within 1e-2 of the largest (the same operations on one rank),
+    and the analyzer's flops, dots and bytes
+    equal those of the same bundle run on fake tensors. The group is
+    closed whatever happens."""
+    import socket
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import hlo_analysis, mesh as M, steps
+    from repro_torch.models.model import Model
+    cfg = get_config("llama3.2-1b").reduced()
+    shape = ShapeConfig("mesh_prefill", 256, 2, "prefill")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    M.open_group(1, backend="nccl", init_method=f"tcp://localhost:{port}")
+    try:
+        mesh = M.make_test_mesh(1, 1, device_type="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                               generator=torch.Generator().manual_seed(0),
+                               dtype=torch.int32).to(cuda)
+        b = steps.build(cfg, mesh, shape)
+        before = kernel.flash_attention_tc.launches
+        real, (lg, _, _), _ = hlo_analysis.analyze(
+            b.fn, *b.shard({"tokens": tokens}))
+        torch.cuda.synchronize()
+        assert kernel.flash_attention_tc.launches == before + cfg.n_layers
+        with FakeTensorMode():
+            bf = steps.build(cfg, mesh, shape)
+            fake, _, _ = hlo_analysis.analyze(bf.fn, *bf.inputs())
+        for key in ("flops", "dot_count", "mem_bytes"):
+            assert real[key] == fake[key], key
+        want, _, _ = Model(cfg, device=cuda, seed=0).prefill(
+            {"tokens": tokens})
+        err = float((lg.full_tensor() - want).abs().max())
+        assert err <= 1e-2 * float(want.abs().max()), err
+    finally:
+        M.close_group()

@@ -184,10 +184,13 @@ Phases:
      streams equal to a `Model` holding the trained params'; the forward
      kernel at llama's training shape (B = 4) and the Function's
      backward beside SDPA's;
- 11e. the mesh layer (at most 90 s, its wall printed): dry-run cells on
+ 11e. the mesh layer (at most 150 s, its wall printed): dry-run cells on
      fake tensors over a fake process group (`launch.dryrun.run_cell`:
      llama3.2-1b train_4k, prefill_32k and decode_32k on 16x16, qwen2-0.5b
-     prefill_32k on 2x16x16, its sequence-parallel flash), each record's
+     prefill_32k on 2x16x16, its sequence-parallel flash, and on 16x16
+     arctic-480b decode_32k (the MoE's small-T path), mixtral-8x7b
+     prefill_32k (tensor-parallel on d_ff), zamba2-2.7b and xlstm-1.3b
+     decode_32k, whisper-large-v3 and internvl2-1b prefill_32k), each record's
      roofline row and peak GiB per device printed, flops x chips at least
      MODEL_FLOPS, no unknown trip count, 256 and 512 chips; then on a real
      one-rank nccl group over the card, a (1, 1) DeviceMesh, full-width
@@ -206,7 +209,20 @@ Phases:
      shape (B = 2, S = 32,768; one launch, outside the steps' counts),
      the whole output within `flash_limit` and the last 1,024 query rows
      within the limit of their own largest, which the plain tail without
-     the last 64 keys must exceed; the group closed in a `finally`;
+     the last 64 keys must exceed; then each other family's bundles
+     (`MESH_FAMILY_BUNDLES`: mixtral at 4 layers, prefill B = 2,
+     S = 32,768 on the expert-parallel path and decode B = 8 in its
+     4,096-row ring on the small-T path, held to the step without a mesh
+     at capacity C = T; zamba2's first group prefill at S = 8,192;
+     full-depth xlstm decode and one group's prefill at S = 512;
+     whisper 4 + 4 layers over 1,500 frames and a 448-token prompt;
+     internvl2 4 layers at S = 32,768 with its 256 patches), each held to
+     its fake twin and to the step without a mesh on the same weights
+     (the mesh model's tensors), with its flash launches (4, 0, 1, 0, 0,
+     12 of them 8 non-causal, 4), and one mixtral train step (1 layer,
+     B = 2, S = 4,096, from step 100) held as llama's; every real step's
+     analyzer peak within 10% of the allocator's increase over the step;
+     the group closed in a `finally`;
  12. drive co-design, the runtime loop, the compile service and the
      fleet, each with the counters at 0 just before it:
      `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
@@ -276,6 +292,7 @@ Run from the root of the repository: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -3726,7 +3743,18 @@ def train_path(dev, card) -> dict:
 MESH_CELLS = (("llama3.2-1b", "train_4k", False),
               ("llama3.2-1b", "prefill_32k", False),
               ("llama3.2-1b", "decode_32k", False),
-              ("qwen2-0.5b", "prefill_32k", True))
+              ("qwen2-0.5b", "prefill_32k", True),
+              # one cell per family of the MoE, hybrid, ssm, audio and
+              # vlm mesh paths: arctic's small-T path (2-D weights),
+              # mixtral tensor-parallel on d_ff with its window, whisper's
+              # encoder with replicated heads, internvl2's
+              # sequence-parallel flash at G = 7
+              ("arctic-480b", "decode_32k", False),
+              ("mixtral-8x7b", "prefill_32k", False),
+              ("zamba2-2.7b", "decode_32k", False),
+              ("xlstm-1.3b", "decode_32k", False),
+              ("whisper-large-v3", "prefill_32k", False),
+              ("internvl2-1b", "prefill_32k", False))
 MESH_ARCH = "llama3.2-1b"
 MESH_PREFILL = (2, 32768)       # prefill_32k: 32 / 16 data ranks
 MESH_DECODE = (8, 32768)        # decode_32k: 128 / 16, its window
@@ -3746,7 +3774,44 @@ MESH_TRAIN_STEP = 100
 # moves the other way (the elementwise master is printed, not checked;
 # 0.019 of a leaf's largest in the phase's first run on the card)
 MESH_GRAD_RTOL = 2.0 ** -8
-MESH_PHASE_S = 90.0             # the phase's budget
+MESH_PHASE_S = 150.0            # the phase's budget
+# the analyzer's exact peak of the storages a real step allocates (ops
+# it sees) against the allocator's increase over the step
+# (max_memory_allocated less the bytes held before it), of the increase
+MESH_PEAK_RTOL = 0.10
+# the other families' bundles on the card's (1, 1) mesh, at the 16x16
+# mesh's per-device batches: (label, arch, config overrides, kind, B,
+# S or W, tensor-core flash launches, of them non-causal). mixtral at 4
+# of 32 layers (4 x 1.41e9 expert weights; the step without a mesh
+# shares the mesh model's tensors), zamba2's first group (6 Mamba2 layers
+# and the shared block), xlstm at full depth (decode) and one group of 7
+# mLSTM + 1 sLSTM layers (prefill), whisper 4 + 4 layers and internvl2 4
+# layers (their logits checks' cuts); whisper's prompt is its published
+# decoder context. zamba2's prompt is cut from 32,768 to 8,192 tokens and
+# xlstm's from 1,024 to 512, for the phase's budget: their fake twins
+# step the Mamba2 chunks and the sLSTM one at a time on fake tensors
+# (26.6 s and 16.1 s at the longer prompts on the card's host)
+MESH_FAMILY_BUNDLES = (
+    ("moe prefill", "mixtral-8x7b", {"n_layers": 4}, "prefill", 2, 32768,
+     4, 0),
+    ("moe decode", "mixtral-8x7b", {"n_layers": 4}, "decode", 8, 4096,
+     0, 0),
+    ("hybrid prefill", "zamba2-2.7b", {"n_layers": 6}, "prefill", 2, 8192,
+     1, 0),
+    ("ssm decode", "xlstm-1.3b", {}, "decode", 8, 1024, 0, 0),
+    ("ssm prefill", "xlstm-1.3b", {"n_layers": 8}, "prefill", 2, 512,
+     0, 0),
+    ("audio prefill", "whisper-large-v3", {"n_layers": 4,
+                                           "n_enc_layers": 4},
+     "prefill", 2, 448, 12, 8),
+    ("vlm prefill", "internvl2-1b", {"n_layers": 4}, "prefill", 2, 32768,
+     4, 0))
+# the moe train step: mixtral at full width, 1 layer (a layer's float32
+# master and two AdamW moments are 16.9 GB; the state, the step's new
+# state and the plain step's first moment of 2 layers do not fit the
+# card's 80 GB), B = 2, S = 4,096, from MESH_TRAIN_STEP: T = 8,192 tokens
+# take the expert-parallel path under local_map, forward and backward
+MESH_MOE_TRAIN = (2, 4096, 1)
 # the tensor-core flash kernel against the plain version at the mesh
 # prefill's per-layer shape; the last MESH_FLASH_TAIL query rows (each
 # sees at least 31,745 keys, max|o| ~0.05 against ~4 in the first rows)
@@ -3804,12 +3869,12 @@ def mesh_step(cfg, mesh, shape, make_args, label: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    before = flash_counts()
+    before, before_nc = flash_counts(), flash_counts(noncausal=True)
     t0 = time.perf_counter()
     real, out, real_live = hlo_analysis.analyze(b.fn, *args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    after = flash_counts()
+    after, after_nc = flash_counts(), flash_counts(noncausal=True)
     peak = torch.cuda.max_memory_allocated()
     with FakeTensorMode():
         bf = steps.build(cfg, mesh, shape, seed=SEED)
@@ -3820,20 +3885,28 @@ def mesh_step(cfg, mesh, shape, make_args, label: str) -> dict:
         est = steps.local_bytes([list(fargs), bf.weights()]) + temp
     same = all(real[k] == fake[k] for k in ("flops", "dot_count",
                                             "mem_bytes"))
+    grew = peak - held
+    gap = abs(real_live - grew) / max(grew, 1)
     log(f"mesh {label}: real run {wall:.2f} s, flops {real['flops']!r} / "
         f"fake {fake['flops']!r}, dots {real['dot_count']} / "
         f"{fake['dot_count']}, mem_bytes {real['mem_bytes']!r} / "
         f"{fake['mem_bytes']!r}, collectives {real['collective_count']} "
         f"{'equal' if same else 'DIFFER'}; fake run {fake_s:.2f} s; peak "
-        f"estimate (fake: arguments + temp) {est / 2**30!r} GiB, "
+        f"(fake: arguments + temp) {est / 2**30!r} GiB, "
         f"torch.cuda.max_memory_allocated {peak / 2**30!r} GiB ("
         f"{held / 2**30!r} GiB held before the step: the arguments, and "
-        f"the models and inputs of the comparison; the real run's live "
-        f"storages {real_live / 2**30!r} GiB)")
+        f"the models and inputs of the comparison), so the step added "
+        f"{grew / 2**30!r} GiB; the analyzer's peak of the real run's "
+        f"storages {real_live / 2**30!r} GiB, off by {gap!r} of it (limit "
+        f"{MESH_PEAK_RTOL}) {'ok' if gap <= MESH_PEAK_RTOL else 'FAILED'}")
     if not same:
         raise RuntimeError(f"mesh {label}: real and fake counts differ")
-    return {"out": out, "launches": {str(k)[6:]: after[k] - before[k]
-                                     for k in after}}
+    if gap > MESH_PEAK_RTOL:
+        raise RuntimeError(f"mesh {label}: the analyzer's peak is off the "
+                           f"allocator's")
+    return {"out": out, "bundle": b, "peak_gap": gap,
+            "launches": {str(k)[6:]: after[k] - before[k] for k in after},
+            "noncausal": sum(after_nc[k] - before_nc[k] for k in after_nc)}
 
 
 def check_mesh_flash(dev) -> float:
@@ -3873,6 +3946,179 @@ def check_mesh_flash(dev) -> float:
         raise RuntimeError("flash_attention check at the mesh prefill's "
                            "shape failed")
     return err
+
+
+def unmeshed(model):
+    """The same model without a mesh, sharing the (1, 1) mesh model's
+    local tensors (each is its whole weight): no copy on the card."""
+    from repro_torch.models.model import Model
+    plain = Model(model.cfg, device="meta")
+    plain.load_state_dict({k: v.to_local() for k, v in
+                           model.state_dict().items()}, assign=True)
+    return plain
+
+
+class moe_capacity_t:
+    """The unsharded MoE FFN with capacity C = T, as the mesh's small-T
+    path applies it (dropless), for the duration of the block."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig = orig = moe._moe_local
+        moe._moe_local = lambda x, *a, **kw: orig(
+            x, *a, **{**kw, "capacity": x.shape[0]})
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._moe_local = self.orig
+
+
+def rel_max(got, want) -> float:
+    got = got.full_tensor() if hasattr(got, "full_tensor") else got
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def family_bundle(dev, mesh, gen, label, arch, over, kind, B, S, want_fa,
+                  want_nc) -> dict:
+    """One bundle of `MESH_FAMILY_BUNDLES` through `mesh_step`, then the
+    same step without a mesh on the same inputs and weights: prefill
+    logits, or decode logits and the whole written cache, within
+    `MESH_LOGITS_RTOL` of the largest, and the bundle's flash launches.
+    The moe decode takes the small-T path, so the step without a mesh
+    runs with capacity C = T."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(arch), **over)
+    ins = {}
+
+    def make_args(b):
+        n_tok = S - cfg.n_patches if cfg.family == "vlm" else S
+        if kind == "prefill":
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (B, n_tok), generator=gen, device=dev,
+                dtype=torch.int32)}
+            batch.update({k: v.float() for k, v in frontend_batch(
+                cfg, B, dev, SEED).items()})
+            ins["args"] = (batch,)
+            return b.shard(batch)
+        if cfg.family == "ssm":        # the states of a 64-token prompt
+            tokens = torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            cache = unmeshed(b.model).prefill({"tokens": tokens})[1]
+        else:
+            shapes = b.model.init_cache(B, S, device="meta")
+            cache = {k: torch.randn(v.shape, generator=gen, device=dev,
+                                    dtype=torch.float32).to(v.dtype)
+                     for k, v in shapes.items()}
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos = torch.randint(S // 2, S, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ins["args"] = (cache, tok, pos)
+        return b.shard({k: v.clone() for k, v in cache.items()}, tok, pos)
+
+    small_t = (cfg.family == "moe" and B * (1 if kind == "decode" else S)
+               <= moe.SMALL_T)
+    r = mesh_step(cfg, mesh, ShapeConfig(label, S, B, kind), make_args,
+                  f"{label} {cfg.name} ({cfg.n_layers} layers"
+                  + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers
+                     else "") + f") B={B} {'S' if kind == 'prefill' else 'W'}"
+                  f"={S}")
+    plain = unmeshed(r["bundle"].model)
+    with moe_capacity_t() if small_t else contextlib.nullcontext():
+        if kind == "prefill":
+            want = plain.prefill(*ins["args"])[0]
+            errs = {"logits": rel_max(r["out"][0], want)}
+        else:
+            cache, tok, pos = ins["args"]
+            want, want_cache = plain.decode_step(cache, tok, pos)
+            got, got_cache = r["out"]
+            errs = {"logits": rel_max(got, want)}
+            errs.update({k: rel_max(got_cache[k], want_cache[k])
+                         for k in want_cache})
+    launches, noncausal = r["launches"], r["noncausal"]
+    del r, plain, ins
+    torch.cuda.empty_cache()
+    fa_ok = (launches == {"bfloat16": want_fa, "float32": 0}
+             and noncausal == want_nc)
+    ok = max(errs.values()) <= MESH_LOGITS_RTOL and fa_ok
+    log(f"check mesh {label} {cfg.name}: vs no mesh "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } of each "
+        f"largest (limit {MESH_LOGITS_RTOL}){', capacity C = T (small-T)' if small_t else ''}"
+        f", flash launches {launches}, {noncausal} non-causal (want "
+        f"{want_fa} bf16, {want_nc} non-causal) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError(f"mesh {label} check failed")
+    return launches
+
+
+def mesh_moe_train(dev, mesh, gen) -> dict:
+    """One train step of full-width mixtral (`MESH_MOE_TRAIN`) on the
+    (1, 1) mesh from `MESH_TRAIN_STEP`, held as the dense train step:
+    loss within MESH_LOSS_RTOL, gradient norm and the master's step norm
+    within MESH_GRAD_RTOL, the first moment within FUNC_RTOL's bf16 limit
+    of each leaf's largest. The plain step's new state is cut to its
+    first moment and step norm, and the state to its placed copy, before
+    the mesh step runs (memory)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import tree_leaves
+    B, S, L = MESH_MOE_TRAIN
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=L)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    model = Model(cfg, device=dev, seed=SEED)
+    tb = steps.build_train(cfg)
+    state = tb.init_state(model)
+    del model
+    state["step"].fill_(MESH_TRAIN_STEP)
+    new0, met0 = tb.step(state, batch)
+    step0 = math.sqrt(sum(float(((w - s0) ** 2).sum()) for w, s0 in zip(
+        tree_leaves(new0["params"]), tree_leaves(state["params"]))))
+    mu0 = new0["opt"]["mu"]
+    del new0, tb
+    torch.cuda.empty_cache()
+    placed = {}
+
+    def make_args(b):
+        # the placed state (a copy) stands in for the state from here on
+        placed["args"] = b.shard(state, batch)
+        state.clear()
+        torch.cuda.empty_cache()
+        return placed["args"]
+    r = mesh_step(cfg, mesh, ShapeConfig("mesh_train", S, B, "train"),
+                  make_args, f"moe train {cfg.name} B={B} S={S} {L} layer")
+    new, met = r["out"]
+    loss_rel, norm_rel = (abs(float(met[k].full_tensor()) - float(met0[k]))
+                          / abs(float(met0[k])) for k in ("loss", "grad_norm"))
+    mu_rel = max(rel_max(g, w) for g, w in zip(tree_leaves(new["opt"]["mu"]),
+                                               tree_leaves(mu0)))
+    old = placed["args"][0]["params"]
+    step = math.sqrt(sum(float(((g.full_tensor() - s0.full_tensor()) ** 2)
+                               .sum()) for g, s0 in zip(tree_leaves(
+                                   new["params"]), tree_leaves(old))))
+    lr, aux = float(met0["lr"]), float(met0["aux"])
+    launches = r["launches"]
+    want = {"bfloat16": 2 * L, "float32": 0}        # forward, remat
+    del r, new, met, mu0, old, placed
+    torch.cuda.empty_cache()
+    ok = (loss_rel <= MESH_LOSS_RTOL and norm_rel <= MESH_GRAD_RTOL
+          and mu_rel <= FUNC_RTOL[torch.bfloat16] and lr > 0 and aux > 0
+          and step0 > 0 and abs(step / step0 - 1) <= MESH_GRAD_RTOL
+          and launches == want)
+    log(f"check mesh moe train from step {MESH_TRAIN_STEP} (lr {lr!r}, aux "
+        f"{aux!r}) vs no mesh: loss {loss_rel!r} (limit {MESH_LOSS_RTOL}), "
+        f"grad_norm {norm_rel!r} (limit {MESH_GRAD_RTOL}), first moment "
+        f"{mu_rel!r} of each leaf's largest (limit "
+        f"{FUNC_RTOL[torch.bfloat16]}), the master's step norm {step!r} vs "
+        f"{step0!r} (limit {MESH_GRAD_RTOL} relative), flash launches "
+        f"{launches} (want {want}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("mesh moe train check failed")
+    return launches
 
 
 def mesh_path(dev, card) -> dict:
@@ -4011,6 +4257,11 @@ def mesh_path(dev, card) -> dict:
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError("mesh train check failed")
+        # the moe, hybrid, ssm, audio and vlm families' bundles, and the
+        # moe train step (its local_map backward)
+        for bundle in MESH_FAMILY_BUNDLES:
+            launches[bundle[0]] = family_bundle(dev, mesh, gen, *bundle)
+        launches["moe train"] = mesh_moe_train(dev, mesh, gen)
     finally:
         M.close_group()
     wall = time.perf_counter() - t_phase
@@ -5081,8 +5332,8 @@ def main() -> int:
         train_sdpa_bwd_ms=trained["times"]["sdpa_bwd_ms"],
         train_step_device_fwd_ms=trained["profile"]["flash_fwd_ms"],
         train_step_device_bwd_ms=trained["profile"]["flash_bwd_ms"])
-    # phase 11e: the mesh steps' launches (prefill 16, decode 0, a
-    # 2-layer train step 4)
+    # phase 11e: the mesh steps' launches (llama's prefill 16, decode 0,
+    # a 2-layer train step 4; the other families' bundles by label)
     rows["flash_attention_tc"].update(
         mesh_launches=meshed["launches"],
         mesh_prefill_shape_max_abs_err=meshed["flash_err"])

@@ -32,8 +32,13 @@ The port's flash entry always skips the key tiles no query sees, so every
 record says `block_skip: true` and there is no `--block-skip` flag (the
 reference's flag chooses between two kernels).
 
-Only the dense family runs on a mesh; every other family fails its cells
-with the message of ROADMAP Queue 1 item 13e.
+Every family runs on the mesh, so `--all` writes 66 records (33 live
+cells on each mesh). The MoE FFN takes the reference's small-T path for
+up to `models.moe.SMALL_T` tokens; `--baseline` sets that to 0 for the
+cell (the reference's REPRO_MOE_SMALL_T=0) and puts it back after. On a
+CPU mesh DTensor runs an all-to-all as an all-gather plus a chunk; the
+analyzer counts each such call as the all-to-all an nccl group runs,
+and the `[ok]` line prints how many there were (`a2a fallbacks`).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -55,7 +60,22 @@ _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              microbatches=1, moment_dtype="float32",
-             baseline=False) -> dict:
+             baseline=False, stats=None) -> dict:
+    """The record of one cell; `stats`, if given, gains the run's
+    "alltoall_fallbacks" and "wall_s"."""
+    from repro_torch.models import moe
+    small_t = moe.SMALL_T
+    if baseline:
+        moe.SMALL_T = 0
+    try:
+        return _run_cell(arch, shape_name, multi_pod, microbatches,
+                         moment_dtype, baseline, stats)
+    finally:
+        moe.SMALL_T = small_t
+
+
+def _run_cell(arch, shape_name, multi_pod, microbatches, moment_dtype,
+              baseline, stats):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import SHAPES, get_config
@@ -88,7 +108,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
                                      rules_kind=rules_kind)
             args = bundle.inputs()
             t1 = time.time()
-            an, out, temp = hlo_analysis.analyze(bundle.fn, *args)
+            with hlo_analysis.Analyzer() as analyzer:
+                out = bundle.fn(*args)
+            an, temp = analyzer.result(), analyzer.peak_live_bytes
             t2 = time.time()
             mem = {
                 "argument_bytes_per_device": steps_mod.local_bytes(
@@ -111,6 +133,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     rec["peak_bytes_per_device"] = (mem["argument_bytes_per_device"]
                                     + mem["temp_bytes_per_device"])
     rec["fits_16g_hbm"] = rec["peak_bytes_per_device"] < 16 * 1024 ** 3
+    if stats is not None:
+        stats["alltoall_fallbacks"] = analyzer.alltoall_fallbacks
+        stats["wall_s"] = time.time() - t0
     return rec
 
 
@@ -150,10 +175,11 @@ def main(argv=None):
                 ok += 1
                 continue
             try:
+                stats = {}
                 rec = run_cell(arch, shape, mp,
                                microbatches=args.microbatches,
                                moment_dtype=args.moment_dtype,
-                               baseline=args.baseline)
+                               baseline=args.baseline, stats=stats)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1)
                 rl = rec["roofline"]
@@ -161,13 +187,14 @@ def main(argv=None):
                       f"bottleneck={rl['bottleneck']} "
                       f"step={rl['step_time_s']:.4f}s "
                       f"mfu={rl['mfu']:.3f} peak_dev_gb="
-                      f"{rec['peak_bytes_per_device']/2**30:.2f}")
+                      f"{rec['peak_bytes_per_device']/2**30:.2f} "
+                      f"a2a fallbacks={stats['alltoall_fallbacks']} "
+                      f"wall={stats['wall_s']:.1f}s")
                 ok += 1
             except Exception as e:
                 fail += 1
                 print(f"[FAIL] {tag}: {e}")
-                if not isinstance(e, NotImplementedError):
-                    traceback.print_exc()
+                traceback.print_exc()
     print(f"dryrun: {ok} ok, {fail} failed")
     return 1 if fail else 0
 

@@ -35,13 +35,22 @@ reference's dict:
                        and all-to-all (g-1)/g of the input, others 1
 
 All numbers are PER-RANK; a collective's group size is its process
-group's. `unknown_trip_counts` is always 0. Beside the
-dict, `peak_live_bytes` is the peak of the bytes held by the storages the
-run allocated (swept for freed ones every `SWEEP` operations, so an
-estimate from above).
+group's. `unknown_trip_counts` is always 0. Beside the dict,
+`peak_live_bytes` is the exact peak of the bytes held by the storages the
+run allocated (fills and empties included): each new storage is counted
+when an operation returns it and dropped when it dies (a finalizer on
+its Python object, which torch keeps alive exactly as long as the
+storage), so the peak is taken at every operation to the storage.
+
+An all-to-all that DTensor runs on a CPU mesh (the fake and gloo groups)
+is an all-gather plus a chunk (`shard_dim_alltoall`'s fallback); the
+analyzer counts each such call once, as the all-to-all of its input that
+an nccl group runs (`_dtensor::shard_dim_alltoall`, counted as such on
+the card), and keeps the number of calls in `alltoall_fallbacks`.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict
 
@@ -65,7 +74,6 @@ _HLO_DTYPE = {
     torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128",
 }
 MEM_READBACK = 1.5
-SWEEP = 64
 
 _WIRE_MULT = {
     "all-reduce": lambda g: 2.0 * (g - 1) / g,
@@ -73,15 +81,17 @@ _WIRE_MULT = {
     "reduce-scatter": lambda g: (g - 1) / g,
     "all-to-all": lambda g: (g - 1) / g,
 }
-# torch's functional collectives (what DTensor calls) by HLO name
-_COLLECTIVES = {
+# torch's functional collectives (what DTensor calls), and DTensor's
+# all-to-all on an nccl mesh, by (namespace, name) -> HLO name
+_COLLECTIVES = {("_c10d_functional", k): v for k, v in {
     "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "broadcast": "collective-broadcast",
-}
+}.items()}
+_COLLECTIVES["_dtensor", "shard_dim_alltoall"] = "all-to-all"
 _NO_MEM = {
     "arange", "full", "full_like", "zeros", "zeros_like", "ones",
     "ones_like", "empty", "empty_like", "empty_strided", "new_empty",
@@ -154,6 +164,32 @@ def _dot_flops(name, args) -> float:
 SHAPE_INFERENCE = "_propagate_tensor_meta_non_cached"
 
 
+def _count_alltoall_fallback(an) -> Callable:
+    """Count each CPU-mesh all-to-all of DTensor (`shard_dim_alltoall`'s
+    all-gather plus chunk) as the one all-to-all an nccl group runs: the
+    fallback's own operations are not counted, its output is. Returns the
+    function that undoes it."""
+    from torch.distributed.tensor import placement_types as pt
+    orig = pt.shard_dim_alltoall
+
+    def counted(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu" or an._paused:
+            return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        an._paused += 1
+        try:
+            out = orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            an._paused -= 1
+        an.alltoall_fallbacks += 1
+        an._collective("all-to-all", mesh.size(mesh_dim), nbytes(input))
+        an._memory(torch.ops._dtensor.shard_dim_alltoall.default,
+                   "shard_dim_alltoall", (input,), out)
+        return out
+
+    pt.shard_dim_alltoall = counted
+    return lambda: setattr(pt, "shard_dim_alltoall", orig)
+
+
 def _hide_shape_inference(an) -> Callable:
     """Pause `an` while DTensor infers output shapes (`SHAPE_INFERENCE`
     runs each operation once more at its global shapes, on fake tensors,
@@ -184,8 +220,9 @@ class Analyzer(TorchDispatchMode):
         self._live = {}
         self._live_bytes = 0
         self.peak_live_bytes = 0
-        self._ops = 0
         self._paused = 0
+        self.alltoall_fallbacks = 0
+        self._open = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -198,13 +235,17 @@ class Analyzer(TorchDispatchMode):
         return out
 
     def __enter__(self):
-        self._unhook = _hide_shape_inference(self)
+        unhooks = (_hide_shape_inference(self),
+                   _count_alltoall_fallback(self))
+        self._unhook = lambda: [u() for u in unhooks]
+        self._open = True
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            self._open = False
             self._unhook()
 
     def _account(self, func, args, out):
@@ -218,18 +259,23 @@ class Analyzer(TorchDispatchMode):
         elif ns == "aten" and name.rstrip("_") in _DOTS:
             c.flops += _dot_flops(name.rstrip("_"), args)
             c.dot_count += 1
-        if ns == "_c10d_functional" and name in _COLLECTIVES:
-            kind = _COLLECTIVES[name]
-            g = max(_group_size(name, args), 1)
+        if (ns, name) in _COLLECTIVES:
+            kind = _COLLECTIVES[ns, name]
             ins, _ = tree_flatten(args[0])
             outs, _ = tree_flatten(out)
             base = sum(nbytes(t) for t in (outs if "gather" in kind else ins)
                        if isinstance(t, torch.Tensor))
-            wire = _WIRE_MULT.get(kind, lambda g: 1.0)(g) * base
-            c.coll_wire += wire
-            c.coll_by_type[kind] = c.coll_by_type.get(kind, 0.0) + wire
-            c.coll_count += 1
+            self._collective(kind, _group_size(name, args), base)
         self._memory(func, name, args, out)
+
+    def _collective(self, kind, g, base):
+        """One collective of `kind` over a group of g ranks, of `base`
+        bytes (its input, or its output for a gather)."""
+        c = self.cost
+        wire = _WIRE_MULT.get(kind, lambda g: 1.0)(max(g, 1)) * base
+        c.coll_wire += wire
+        c.coll_by_type[kind] = c.coll_by_type.get(kind, 0.0) + wire
+        c.coll_count += 1
 
     def _memory(self, func, name, args, out):
         schema = func._schema
@@ -237,6 +283,8 @@ class Analyzer(TorchDispatchMode):
         write = rets and rets[0].alias_info is not None \
             and rets[0].alias_info.is_write
         view = rets and rets[0].alias_info is not None and not write
+        if not (view or write):
+            self._track(out)
         if view or name in _NO_MEM:
             return
         if write and name in _INDEX_WRITES:
@@ -251,25 +299,26 @@ class Analyzer(TorchDispatchMode):
             c.mem_bytes += b
             key = type_str(t)
             c.mem_by_shape[key] = c.mem_by_shape.get(key, 0.0) + b
-        if not write:
-            self._track(out)
 
     def _track(self, out):
-        from torch.multiprocessing.reductions import StorageWeakRef
-        self._ops += 1
-        if self._ops % SWEEP == 0:
-            for key in [k for k, (ref, _) in self._live.items()
-                        if ref.expired()]:
-                self._live_bytes -= self._live.pop(key)[1]
+        """Count the storages of `out` not counted yet, each until it
+        dies, and raise the peak to the bytes now held."""
         for t in tree_flatten(out)[0]:
             if not isinstance(t, torch.Tensor):
                 continue
             st = t.untyped_storage()
-            ref = StorageWeakRef(st)
-            if ref.cdata not in self._live:
-                self._live[ref.cdata] = (ref, st.nbytes())
-                self._live_bytes += st.nbytes()
-        self.peak_live_bytes = max(self.peak_live_bytes, self._live_bytes)
+            key = st._cdata
+            if key not in self._live:
+                n = st.nbytes()
+                self._live[key] = n
+                self._live_bytes += n
+                weakref.finalize(st, self._died, key)
+        if self._live_bytes > self.peak_live_bytes:
+            self.peak_live_bytes = self._live_bytes
+
+    def _died(self, key):
+        if self._open:
+            self._live_bytes -= self._live.pop(key)
 
     def result(self) -> dict:
         c = self.cost

@@ -315,7 +315,8 @@ def _build_train(cfg, mesh, shape, rules, microbatches, total_steps,
 
     def train_step(state, batch):
         new, metrics = tb.step(state, batch)
-        return place_tree(new, tb.placements, mesh), metrics
+        return (place_tree(new, tb.placements, mesh),
+                place_tree(metrics, out_pl[1], mesh))
 
     return StepBundle("train", train_step, (state_specs, bspecs), in_pl,
                       out_pl, (0,), tb.model, rules,

@@ -153,10 +153,13 @@ def _mesh_flash(q, k, v, mesh, *, causal, window, seqpar):
     (raises if a shard splits a group unevenly). Sequence-parallel
     (`seqpar`, the reference's `_seqpar_flash`): q's sequence sharded
     over 'model', k and v replicated over it, q_offset from the rank on
-    'model'; zero collectives inside attention."""
+    'model'; zero collectives inside attention. q has Sq rows and k, v
+    Skv (cross-attention: the prompt against the encoder's frames); a
+    split of q's rows offsets its queries by Sq // ranks each, and the
+    keys are never split."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    B, S, H, _ = q.shape
+    B, Sq, H, _ = q.shape
     K = k.shape[2]
     G = H // K
     if seqpar:
@@ -182,7 +185,7 @@ def _mesh_flash(q, k, v, mesh, *, causal, window, seqpar):
         raise ValueError(f"a shard of {H_l} of {H} query heads (from "
                          f"{h0}) does not hold whole groups of {G} over "
                          f"kv heads {k0}..{k0 + K_l - 1}")
-    off = sq * (S // ns)
+    off = sq * (Sq // ns)
 
     def fn(ql, kl, vl):
         if (ka - k0, kb - k0) != (0, K_l):
@@ -238,10 +241,17 @@ def cross_kv(p, enc_out):
 
 def cross_attend_train(p, x, enc_kv, cfg):
     """Decoder cross-attention against precomputed encoder K/V, through
-    the flash kernel in non-causal mode. Returns (B, S, d)."""
+    the flash kernel in non-causal mode (per rank under a mesh,
+    tensor-parallel over the heads, as the reference's plain flash call
+    is laid out). Returns (B, S, d)."""
     k, v = enc_kv
-    o = flash_attention(_heads_in(x, p.wq), k, v, causal=False)
-    return _heads_out(o, p.wo)
+    q = _heads_in(x, p.wq)
+    if is_dtensor(q):
+        o = _mesh_flash(q, k, v, q.device_mesh, causal=False, window=0,
+                        seqpar=False)
+    else:
+        o = flash_attention(q, k, v, causal=False)
+    return shard_act(_heads_out(o, p.wo), "batch", "seq", "embed")
 
 
 def cross_decode(p, x, cross_k, cross_v):
@@ -252,10 +262,12 @@ def cross_decode(p, x, cross_k, cross_v):
     q = _heads_in(x, p.wq)
     H, hd = q.shape[2], q.shape[3]
     K = cross_k.shape[2]
+    # one token's q whole over its heads, as `decode` lays it out
+    q = shard_act(q, "batch", "seq", None, "head_dim")
     qg = q.reshape(B, K, H // K, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
                      cross_k.float()) / math.sqrt(hd)
-    w = torch.softmax(s, dim=-1)
+    w = _softmax(s)
     o = torch.einsum("bkgs,bskh->bkgh", w.to(cross_v.dtype), cross_v)
     return _heads_out(o.reshape(B, 1, H, hd), p.wo)
 
@@ -278,16 +290,20 @@ def seed_ring_cache(k, v, window):
     for decode at pos = S: the last W positions when S > W."""
     S = k.shape[-3]
     W = window
-    ck = k.new_zeros(k.shape[:-3] + (W,) + k.shape[-2:])
-    cv = v.new_zeros(v.shape[:-3] + (W,) + v.shape[-2:])
     if S <= W:
+        ck = k.new_zeros(k.shape[:-3] + (W,) + k.shape[-2:])
+        cv = v.new_zeros(v.shape[:-3] + (W,) + v.shape[-2:])
         ck[..., :S, :, :] = k
         cv[..., :S, :, :] = v
         return ck, cv
-    idx = torch.arange(S - W, S, device=k.device) % W
-    ck[..., idx, :, :] = k[..., S - W:, :, :]
-    cv[..., idx, :, :] = v[..., S - W:, :, :]
-    return ck, cv
+    # position S - W + j goes to slot (S - W + j) % W: the tail rolled by
+    # S % W, as two slices (a DTensor has them, and no index write or roll)
+    def ring(t):
+        tail = t[..., S - W:, :, :]
+        cut = W - S % W
+        return torch.cat([tail[..., cut:, :, :], tail[..., :cut, :, :]],
+                         dim=-3)
+    return ring(k), ring(v)
 
 
 def _softmax(s):

@@ -24,7 +24,7 @@ import contextlib
 import functools
 import math
 import sys
-import threading
+import types
 
 import numpy as np
 import torch
@@ -40,7 +40,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # Sharding context
 # ---------------------------------------------------------------------------
 
-_CTX = threading.local()
+# process-wide, not per thread: autograd runs a CUDA backward, and the
+# recompute of a checkpointed block in it, on a thread of its own, which
+# must see the context of the step that started it
+_CTX = types.SimpleNamespace(val=None)
 
 
 @contextlib.contextmanager
@@ -190,6 +193,18 @@ def gathered(w):
     if want == tuple(w.placements):
         return w
     return w.redistribute(mesh, want)
+
+
+class Gathered:
+    """Attribute access to a module's (or a `_View`'s) weights, each
+    `gathered` where it is read: the layer code of the families that run
+    under a mesh through their layouts alone reads its weights so."""
+
+    def __init__(self, p):
+        self._p = p
+
+    def __getattr__(self, name):
+        return gathered(getattr(self._p, name))
 
 
 class _GradLayout(torch.autograd.Function):

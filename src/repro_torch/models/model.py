@@ -23,7 +23,7 @@ Layers run as a Python loop.
 API (the reference's, with the parameters held by the module):
   Model(cfg, device=, seed=)                -> seeded truncated-normal init
   Model(cfg, ..., mesh=, rules=)            -> the same weights as DTensors
-                                               on a DeviceMesh (dense only)
+                                               on a DeviceMesh
   param_specs(), cache_specs()              -> the reference's logical-axis
                                                trees
   loss(batch, params=None)                  -> (loss, {"ce", "aux"})
@@ -53,8 +53,11 @@ Under a mesh (`launch.steps.build` makes it) each weight is a DTensor
 placed by the rules over `param_specs` (a stacked leaf's spec less its
 layer axis), and `prefill`, `decode_step` and `loss` run in the sharding
 context (`models.common.sharding_ctx`), where plain tensors count as
-replicated. Only the dense family runs on a mesh; the others raise
-NotImplementedError naming ROADMAP Queue 1 item 13e.
+replicated. Every family runs on a mesh: the moe FFN through its own
+expert- and tensor-parallel paths (`models.moe`), the others through
+their layouts alone (weights placed by `param_specs`, activations by
+`shard_act`), as in the reference; the ssm family's sLSTM scan runs per
+rank (`xlstm.s_apply`).
 
 Training: `loss` runs the train-mode forward of every family (the
 reference's `Model.loss`), differentiably. `params`, if given, is the
@@ -86,10 +89,6 @@ from repro_torch.models.common import chunked_softmax_xent, \
     current_mesh, dense_init, dtype_of, embed, gathered, logical_to_pspec, \
     norm, norm_init, norm_specs, param, shard_act, sharding_ctx, \
     sinusoid_at, sinusoidal_positions, to_placements
-
-MESH_FAMILIES = ("dense",)
-MESH_PENDING = ("the mesh paths of the moe, hybrid, ssm, audio and vlm "
-                "families wait for ROADMAP Queue 1 item 13e")
 
 KV_FAMILIES = ("dense", "vlm", "moe")
 FAMILIES = KV_FAMILIES + ("hybrid", "ssm", "audio")
@@ -247,10 +246,6 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
-        if mesh is not None and cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: a mesh takes the dense family only; "
-                f"{MESH_PENDING}")
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None and rules is None:

@@ -23,17 +23,25 @@ A prompt longer than `CHUNK` must be a multiple of it (the reference's
 `assert S % Q == 0`): padding on the right would run the pad through the
 recurrence and corrupt the state a decode continues from.
 
+Under a mesh the input projection and the gated output run on
+DTensors and the conv with the chunk scan runs per rank through
+`local_map` (`_mesh_core`): the batch over the data axes, the heads over
+'model' (the reference's ssm_heads), so the scan makes no collective.
+
 Plain torch: the reference has no Pallas kernel here (its chunk scan is
 XLA), so the port has none either. Used by zamba2-2.7b (54 Mamba2 layers
 and one shared attention block, models/model.py).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import dense_init, dtype_of, param, rms_norm
+from repro_torch.models.common import Gathered, axis_sizes, dense_init, \
+    dtype_of, is_dtensor, param, rms_norm, shard_act
 
 CHUNK = 256
 
@@ -125,26 +133,25 @@ def _gated_out(p, y, z, x_dtype, cfg):
     return y @ p.w_out
 
 
-def apply(p, x, cfg, conv_state=None, ssm_state=None, return_state=False):
-    """x: (B, S, d_model) -> (B, S, d_model), chunked SSD. With
-    `return_state` also returns (conv_state (B, k-1, cdim), ssm_state
-    (B, H, P, N) float32) to continue from in decode."""
-    B, S, d = x.shape
-    di, nh, cdim = dims(cfg)
+def _core(xBC, dt_raw, conv_w, conv_b, dt_bias, A_log, D, conv_state,
+          ssm_state, cfg, heads=slice(None)):
+    """The causal conv, the gates and the chunked SSD scan of the heads
+    `heads` (dt_bias, A_log and D are theirs; the ssm state too). xBC,
+    dt_raw: the input projection's slices (B, S, .). Returns (y (B, S,
+    H_l, P) float32 with the D skip, the state after the last chunk)."""
+    B, S, _ = xBC.shape
+    di, nh, _ = dims(cfg)
     N, P = cfg.ssm_state, cfg.ssm_headdim
     Q = min(CHUNK, S)
     assert S % Q == 0, (S, Q)
     nc = S // Q
-
-    zxbcdt = x @ p.w_in
-    z, xBC, dt_raw = _split(cfg, zxbcdt)
-    xBC = F.silu(_causal_conv(xBC, p.conv_w, p.conv_b, conv_state))
-    xc = xBC[..., :di].reshape(B, S, nh, P)
+    xBC = F.silu(_causal_conv(xBC, conv_w, conv_b, conv_state))
+    xc = xBC[..., :di].reshape(B, S, nh, P)[:, :, heads]
     Bm = xBC[..., di:di + N].float()
     Cm = xBC[..., di + N:].float()
 
-    dtv = _softplus(dt_raw.float() + p.dt_bias)              # (B, S, H)
-    A = -torch.exp(p.A_log)                                  # (H,) < 0
+    dtv = _softplus(dt_raw[..., heads].float() + dt_bias)    # (B, S, H)
+    A = -torch.exp(A_log)                                    # (H,) < 0
     da = dtv * A                                             # <= 0
 
     def chunk(t, c):
@@ -152,8 +159,8 @@ def apply(p, x, cfg, conv_state=None, ssm_state=None, return_state=False):
 
     xcf = xc.float()
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))
-    state = x.new_zeros((B, nh, P, N), dtype=torch.float32) \
+                                   device=xBC.device))
+    state = xcf.new_zeros((B, dtv.shape[-1], P, N)) \
         if ssm_state is None else ssm_state
     ys = []
     for c in range(nc):
@@ -179,8 +186,81 @@ def apply(p, x, cfg, conv_state=None, ssm_state=None, return_state=False):
         state = state * torch.exp(cum[:, -1])[:, :, None, None] + st
         ys.append(y)
     y = torch.cat(ys, dim=1)                                  # (B, S, H, P)
-    y = y + p.D[None, None, :, None] * xcf
-    out = _gated_out(p, y.reshape(B, S, di), z, x.dtype, cfg)
+    return y + D[None, None, :, None] * xcf, state
+
+
+def _mesh_core(p, xBC, dt_raw, conv_state, ssm_state, cfg):
+    """`_core` of DTensors, per rank through `local_map`: the batch over
+    the data axes, the heads over 'model' (the reference's ssm_heads),
+    each where it divides them; the conv runs whole on every rank of a
+    head group (its weights are small). Zero collectives inside."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.mesh import coordinate
+    mesh = xBC.device_mesh
+    names = mesh.mesh_dim_names
+    sizes = axis_sizes(mesh)
+    nh = dims(cfg)[1]
+    m = sizes.get("model", 1)
+    n_data = math.prod(v for a, v in sizes.items() if a != "model")
+    split = xBC.shape[0] % n_data == 0
+    by_head = "model" in names and nh % m == 0
+    nh_l = nh // m if by_head else nh
+    h0 = coordinate(mesh, ["model"]) * nh_l if by_head else 0
+
+    def pl(batch_dim, head_dim, other=Replicate()):
+        return tuple((Shard(batch_dim) if split and batch_dim is not None
+                      else other) if a != "model" else
+                     (Shard(head_dim) if by_head and head_dim is not None
+                      else Replicate()) for a in names)
+    part = tuple(Partial() if (split if a != "model" else by_head)
+                 else Replicate() for a in names)
+    x_pl, x_grad = pl(0, None), tuple(
+        Shard(0) if split and a != "model" else g
+        for a, g in zip(names, part))
+    w_pl = pl(None, None)
+    h_pl = pl(None, 0)
+    h_grad = tuple(Partial() if split and a != "model" else q
+                   for a, q in zip(names, h_pl))
+    states = tuple(t for t in (conv_state, ssm_state) if t is not None)
+    st_pl = tuple(pl(0, None if t is conv_state else 1) for t in states)
+    heads = slice(h0, h0 + nh_l)
+
+    def fn(xl, dl, conv_w, conv_b, dt_bias, A_log, D, *st):
+        cs = st[0] if conv_state is not None else None
+        ss = st[-1] if ssm_state is not None else None
+        return _core(xl, dl, conv_w, conv_b, dt_bias, A_log, D, cs, ss,
+                     cfg, heads)
+
+    return local_map(
+        fn, out_placements=(pl(0, 2), pl(0, 1)),
+        in_placements=(x_pl, x_pl, w_pl, w_pl, h_pl, h_pl, h_pl) + st_pl,
+        in_grad_placements=(x_grad, x_grad, part, part, h_grad, h_grad,
+                            h_grad) + st_pl,
+        device_mesh=mesh, redistribute_inputs=True)(
+            xBC, dt_raw, p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D,
+            *states)
+
+
+def apply(p, x, cfg, conv_state=None, ssm_state=None, return_state=False):
+    """x: (B, S, d_model) -> (B, S, d_model), chunked SSD. With
+    `return_state` also returns (conv_state (B, k-1, cdim), ssm_state
+    (B, H, P, N) float32) to continue from in decode. Under a mesh the
+    conv and the chunk scan run per rank (`_mesh_core`)."""
+    B, S, d = x.shape
+    p = Gathered(p)
+    di, nh, cdim = dims(cfg)
+
+    # laid out (and its gradient too) as the rules lay out inner_all
+    zxbcdt = shard_act(x @ p.w_in, "batch", "seq", "inner_all")
+    z, xBC, dt_raw = _split(cfg, zxbcdt)
+    if is_dtensor(zxbcdt):
+        y, state = _mesh_core(p, xBC, dt_raw, conv_state, ssm_state, cfg)
+    else:
+        y, state = _core(xBC, dt_raw, p.conv_w, p.conv_b, p.dt_bias,
+                         p.A_log, p.D, conv_state, ssm_state, cfg)
+    out = shard_act(_gated_out(p, y.reshape(B, S, di), z, x.dtype, cfg),
+                    "batch", "seq", "embed")
     if return_state:
         k = cfg.conv_kernel
         pad = xBC.new_zeros((B, max(k - 1 - S, 0), cdim))
@@ -195,6 +275,7 @@ def decode_step(p, x, conv_state, ssm_state, cfg):
     ssm_state: (B, H, P, N) float32. Returns (out (B, 1, d), conv_state,
     ssm_state), new tensors."""
     B = x.shape[0]
+    p = Gathered(p)
     di, nh, cdim = dims(cfg)
     N, P = cfg.ssm_state, cfg.ssm_headdim
 
@@ -214,5 +295,6 @@ def decode_step(p, x, conv_state, ssm_state, cfg):
         "bh,bn,bhp->bhpn", dtv, Bm, xc)
     y = torch.einsum("bn,bhpn->bhp", Cm, ssm_state) \
         + p.D[None, :, None] * xc
-    out = _gated_out(p, y.reshape(B, 1, di), z, x.dtype, cfg)
+    out = shard_act(_gated_out(p, y.reshape(B, 1, di), z, x.dtype, cfg),
+                    "batch", "seq", "embed")
     return out, conv_state, ssm_state

@@ -178,8 +178,16 @@ def _ref_analysis(arch, kind):
     p = jax.eval_shape(m.init, jax.random.key(0))
     toks = jax.ShapeDtypeStruct((B, S), jnp.int32)
     if kind == "prefill":
-        f = jax.jit(lambda p, t: m.prefill(p, {"tokens": t}))
-        args = (p, toks)
+        extra = {}
+        if cfg.family == "audio":
+            extra["frames"] = jax.ShapeDtypeStruct(
+                (B, cfg.enc_frames, cfg.d_model), jnp.float32)
+        if cfg.family == "vlm":
+            toks = jax.ShapeDtypeStruct((B, S - cfg.n_patches), jnp.int32)
+            extra["patches"] = jax.ShapeDtypeStruct(
+                (B, cfg.n_patches, cfg.d_model), jnp.float32)
+        f = jax.jit(lambda p, t, e: m.prefill(p, {"tokens": t, **e}))
+        args = (p, toks, extra)
     elif kind == "decode":
         cache = jax.eval_shape(lambda: m.init_cache(B, m.kv_window(S)))
         f = jax.jit(m.decode_step)
@@ -194,25 +202,46 @@ def _ref_analysis(arch, kind):
 
 
 def _port_analysis(arch, kind):
+    from repro_torch.models import moe
     cfg = get_config(arch).reduced()
-    with fake_group(1):
-        mesh = make_test_mesh(1, 1)
-        with FakeTensorMode():
-            b = steps.build(cfg, mesh, ShapeConfig("mini", S, B, kind))
-            an, _, _ = hlo_analysis.analyze(b.fn, *b.inputs())
+    small_t = moe.SMALL_T
+    moe.SMALL_T = 0        # the capacity C, as the unsharded reference
+    try:
+        with fake_group(1):
+            mesh = make_test_mesh(1, 1)
+            with FakeTensorMode():
+                b = steps.build(cfg, mesh, ShapeConfig("mini", S, B, kind))
+                an, _, _ = hlo_analysis.analyze(b.fn, *b.inputs())
+    finally:
+        moe.SMALL_T = small_t
     assert not dist.is_initialized()
     return an
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3.2-1b"])
-@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+NEW_FAMILIES = ("internvl2-1b", "mixtral-8x7b", "zamba2-2.7b", "xlstm-1.3b",
+                "whisper-large-v3")
+
+
+@pytest.mark.parametrize("arch,kind", [
+    (a, k) for a in ("qwen2-0.5b", "llama3.2-1b")
+    for k in ("prefill", "decode", "train")] + [
+    (a, k) for a in NEW_FAMILIES for k in ("prefill", "decode")])
 def test_analyzer_flops_match_the_reference(arch, kind):
+    """The dense family as the module docstring says. The vlm, moe,
+    hybrid, ssm and audio families' prefill and decode (the moe with
+    `SMALL_T = 0`, so both take the capacity C) have the reference's
+    flops exactly, and its dots but for xlstm's sLSTM: under a mesh its
+    input product runs as one product a gate (`xlstm._mesh_scan`, the
+    same flops), 3 dots more a sLSTM layer."""
     got, want = _port_analysis(arch, kind), _ref_analysis(arch, kind)
     assert got["unknown_trip_counts"] == 0
     assert got["flops"] == pytest.approx(want["flops"], rel=FLOPS_RTOL)
     if kind != "train":
+        cfg = get_config(arch).reduced()
+        extra = 3 * (cfg.n_layers // cfg.slstm_every) \
+            if cfg.family == "ssm" else 0
         assert got["flops"] == want["flops"]
-        assert got["dot_count"] == want["dot_count"]
+        assert got["dot_count"] == want["dot_count"] + extra
     assert set(got) == set(want)
 
 
@@ -274,6 +303,42 @@ def test_flash_entry_takes_meta_tensors():
         and o.dtype == torch.bfloat16
 
 
+def test_peak_live_bytes_is_exact():
+    """200 tensors of 1 MiB, each freed before the next is made: the peak
+    is 1 MiB to the byte, and 10 MiB when ten live at once (a fill
+    included); a sweep every few operations would count dead ones."""
+    base = torch.ones(1 << 18)                  # made before: not counted
+    with hlo_analysis.Analyzer() as an:
+        for _ in range(200):
+            t = base * 2
+            del t
+    assert an.peak_live_bytes == 1 << 20
+    with hlo_analysis.Analyzer() as an:
+        ts = [base * 2 for _ in range(9)] + [torch.zeros(1 << 18)]
+        del ts
+        u = base + 1                            # noqa: F841
+    assert an.peak_live_bytes == 10 << 20
+
+
+def test_a_cpu_alltoall_counts_as_one_alltoall():
+    """A Shard(0) -> Shard(1) redistribute on a CPU mesh runs DTensor's
+    all-gather-plus-chunk fallback; the analyzer counts it as the one
+    all-to-all of its input that an nccl group runs."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    with fake_group(4):
+        mesh = make_test_mesh(4, 1)
+        with FakeTensorMode():
+            x = distribute_tensor(torch.empty(8, 64), mesh,
+                                  (Shard(0), Shard(0)))
+            with hlo_analysis.Analyzer() as an:
+                y = x.redistribute(mesh, (Shard(1), Shard(0)))
+            assert y.to_local().shape == (8, 16)
+    assert not dist.is_initialized()
+    res = an.result()
+    assert an.alltoall_fallbacks == 1 and res["collective_count"] == 1
+    assert res["collective_by_type"] == {"all-to-all": 2 * 64 * 4 * 3 / 4}
+
+
 def test_internal_torch_apis_the_port_uses():
     """Pins torch internals the dry run depends on."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -282,6 +347,8 @@ def test_internal_torch_apis_the_port_uses():
     assert hasattr(ShardingPropagator, hlo_analysis.SHAPE_INFERENCE)
     from torch.distributed.tensor.experimental import (  # noqa: F401
         implicit_replication, local_map)
+    from torch.distributed.tensor import placement_types
+    assert callable(placement_types.shard_dim_alltoall)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ capacity, dispatch and combine) and the MoE decoder block against the
 JAX reference's `mesh=None` path on the same inputs.
 
 Reduced configs at float32 (mixtral: 4 experts, top 2; arctic adds its
-dense residual MLP). Gates, expert ids and the aux loss are compared
+dense residual MLP). `_moe_local` also on one rank's share of the
+experts and of d_ff with a set capacity, as the mesh paths call it. Gates, expert ids and the aux loss are compared
 within 1e-6 (ids exactly), outputs within 1e-5, the limit of
 tests/test_torch_models.py.
 """
@@ -97,6 +98,45 @@ def test_moe_local_capacity_drops_match(cf, T):
     np.testing.assert_array_equal(zero, zero_ref)
     if cf <= 0.25:
         assert zero.any()     # some token lost both assignments
+
+
+@pytest.mark.parametrize("e_offset,E_loc,f_slice,capacity", [
+    (0, 2, None, None), (2, 2, None, None), (1, 1, None, 40),
+    (0, 4, (32, 96), None), (2, 2, (0, 64), 40)])
+def test_moe_local_expert_slice_matches_the_reference(e_offset, E_loc,
+                                                      f_slice, capacity):
+    """One rank's share as the mesh paths give it: the experts
+    [e_offset, e_offset + E_loc) and, with `f_slice`, a slice of d_ff
+    (w1/w3's last axis, w2's middle one), with the capacity the caller
+    sets (the small-T path's C = T) or the default. The reference's
+    `_moe_local` (no mesh) on the same slices and arguments: outputs
+    within 1e-5, the aux loss (from the full router view) within 1e-6.
+    Routed assignments outside the slice add nothing, so the slices'
+    outputs sum to the whole FFN's."""
+    ref_cfg, cfg, params, model = _pair("mixtral-8x7b", capacity_factor=0.5)
+    mp = jax.tree.map(lambda a: a[0], params["blocks"])["moe"]
+    rng = np.random.default_rng(e_offset + E_loc)
+    T = 40
+    x = rng.standard_normal((T, cfg.d_model)).astype(np.float32)
+    a, b = f_slice or (0, cfg.d_ff)
+    es = slice(e_offset, e_offset + E_loc)
+    w1, w3 = (np.asarray(mp[n])[es, :, a:b] for n in ("w1", "w3"))
+    w2 = np.asarray(mp["w2"])[es, a:b]
+    y_ref, a_ref = ref_moe._moe_local(
+        jnp.asarray(x), mp["router"], jnp.asarray(w1), jnp.asarray(w3),
+        jnp.asarray(w2), ref_cfg, e_offset, capacity=capacity)
+    y, aux = moe._moe_local(torch.tensor(x), model.blocks[0].moe.router,
+                            torch.tensor(w1), torch.tensor(w3),
+                            torch.tensor(w2), cfg, e_offset, capacity)
+    _close(y, y_ref)
+    _close(aux, a_ref, ATOL_ROUTE)
+    p = model.blocks[0].moe
+    whole, _ = moe._moe_local(torch.tensor(x), p.router, p.w1, p.w3, p.w2,
+                              cfg, capacity=capacity)
+    parts = sum(moe._moe_local(torch.tensor(x), p.router, p.w1[e:e + 2],
+                               p.w3[e:e + 2], p.w2[e:e + 2], cfg, e,
+                               capacity)[0] for e in (0, 2))
+    _close(parts, whole.numpy())
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b"])

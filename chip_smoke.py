@@ -176,8 +176,9 @@ Phases:
      4,096 tokens at a global batch of 8 in 2 microbatches) trained 8
      steps with the counters at 0 just before it: 64 tensor-core flash
      launches and no float32 one a step, the loss finite and lower at
-     the last step than at the first, an async checkpoint at step 4 and
-     a final one; its warm step wall, tokens/s, model-FLOPs share of the
+     the last step than at the first, the norm of each step on the
+     master, an async checkpoint at the last step (waited for); its warm
+     step wall, tokens/s, model-FLOPs share of the
      bf16 peak, peak memory and telemetry profile; one more step under
      the profiler (idle share, the Function's forward and backward
      device ms); `launch.serve --ckpt-dir` on its checkpoint, 4 greedy
@@ -223,6 +224,22 @@ Phases:
      B = 2, S = 4,096, from step 100) held as llama's; every real step's
      analyzer peak within 10% of the allocator's increase over the step;
      the group closed in a `finally`;
+ 11f. the Trainer on a mesh (at most 150 s, its wall printed): on a
+     one-rank nccl group's (1, 1) mesh over the card, `Trainer(cfg, mesh,
+     shape, tcfg)` on phase 11d's cell and schedule with the counters at
+     0 just before it, preempted after 3 steps (its checkpoint from the
+     mesh at full depth, timed): each mesh step against the step
+     without a mesh from the same state (uncounted), its loss within 1e-5,
+     its gradient norm and the norm of its step on the master within
+     2^-8, and the trajectory against phase 11d's run within 2^-8 (bf16
+     gradients summed in another order part the two after the first
+     update), 64 tensor-core flash launches a step and no float32 one,
+     the master DTensors; the step walls and a mesh step's peak memory
+     beside phase 11d's; then at 2 layers, full width, one mesh step and
+     its checkpoint from the mesh restored without a mesh, saved from
+     there and restored onto the mesh: every leaf bit-equal, placed as
+     the mesh's rules say, each manifest naming its writer's mesh, the
+     save and restore seconds; the group closed in a `finally`;
  12. drive co-design, the runtime loop, the compile service and the
      fleet, each with the counters at 0 just before it:
      `Session(device="cuda").run(CoDesignQuery(...))` for the four dense
@@ -278,7 +295,7 @@ Phases:
      scan kernel's device ms in it;
  14. print a {"kernels": [...]} JSON line (the scan row also carries the
      gradient path's launches; every row carries phase 12's, by part; the
-     flash rows carry phase 11b's, 11c's, 11d's and 11e's, the
+     flash rows carry phase 11b's, 11c's, 11d's, 11e's and 11f's, the
      non-causal launches and errors apart, and their times at the new
      shapes, the training shape and the Function's backward with its
      bound), the
@@ -3277,7 +3294,9 @@ TRAIN_SEQ = 4096                # train_4k's sequence
 TRAIN_BATCH = 8                 # train_4k's global batch of 256, cut to 8
 TRAIN_MICRO = 2                 # microbatches of 4
 TRAIN_STEPS = 8
-TRAIN_CKPT_EVERY = 4            # the async checkpoint at step 4
+# one async checkpoint, at the last step (waited for): the mid-run one
+# went for phase 11f's budget (the reduced trainer keeps one mid-run)
+TRAIN_CKPT_EVERY = 8
 TRAIN_WEIGHTS = 1_235_814_400
 # flash launches of one full-width step: microbatches x layers x 2 (the
 # forward, and remat="full"'s recompute in the backward)
@@ -3484,7 +3503,7 @@ def reduced_trainer(dev, root) -> dict:
     shape = ShapeConfig("reduced_train", *REDUCED_SHAPE, "train")
 
     def trainer(d, device, **kw):
-        tr = Trainer(cfg, shape, TrainConfig(
+        tr = Trainer(cfg, None, shape, TrainConfig(
             total_steps=REDUCED_STEPS, ckpt_every=REDUCED_CKPT_EVERY,
             ckpt_dir=str(root / d), log_every=100, log_fn=lambda *a: None,
             device=device, **kw))
@@ -3534,6 +3553,67 @@ def reduced_trainer(dev, root) -> dict:
     return {"steps": len(hist_a)}
 
 
+def step_norm(new, old) -> float:
+    """The l2 norm of new - old over every leaf of two parameter trees
+    (float32 sums; a DTensor's gathered)."""
+    from repro_torch.optim.optimizers import tree_leaves
+    total = 0.0
+    for n, o in zip(tree_leaves(new), tree_leaves(old)):
+        sq = ((n - o) ** 2).sum()
+        total += float(sq.full_tensor() if hasattr(sq, "full_tensor")
+                       else sq)
+    return math.sqrt(total)
+
+
+def instrument_trainer(tr) -> dict:
+    """Wrap a Trainer's step and checkpoint calls: returns lists of the
+    flash launches of each step by dtype ("launches"), the norm of each
+    step on the master ("norms"), each step's wall to its synchronize
+    ("walls"), the allocator's peak up to the end of each step ("peaks";
+    the norm's temporaries are left out: the peak is reset after it) and
+    the checkpoint calls as (kind, step, s in the loop; an async save's
+    is its host copy) ("saves")."""
+    got = {k: [] for k in ("launches", "norms", "walls", "peaks", "saves")}
+    step_fn = tr.step_fn
+
+    def counted_step(state, batch):
+        before = flash_counts()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        got["walls"].append(time.perf_counter() - t0)
+        got["peaks"].append(torch.cuda.max_memory_allocated())
+        after = flash_counts()
+        got["launches"].append({d: after[d] - before[d] for d in after})
+        got["norms"].append(step_norm(out[0]["params"], state["params"]))
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    tr.step_fn = counted_step
+    for name in ("save", "save_async"):
+        def timed_save(step, tree, _fn=getattr(tr.ckpt, name), _name=name):
+            t0 = time.perf_counter()
+            _fn(step, tree)
+            got["saves"].append((_name, step, time.perf_counter() - t0))
+        setattr(tr.ckpt, name, timed_save)
+    return got
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block leave every launch counter as it was
+    (a comparison's, not a path's)."""
+    fns = counted().values()
+    saved = [(fn.launches, getattr(fn, "noncausal_launches", None))
+             for fn in fns]
+    try:
+        yield
+    finally:
+        for fn, (n, nc) in zip(fns, saved):
+            fn.launches = n
+            if nc is not None:
+                fn.noncausal_launches = nc
+
+
 def profile_train_step(step_fn, state, batch) -> dict:
     """One warm train step under torch.profiler: the wall, the device
     busy time (device-side events), the idle share, and the flash
@@ -3570,8 +3650,9 @@ def train_full_width(dev, root, card) -> dict:
     """llama3.2-1b at full width and depth, bf16 over float32 master
     params, AdamW, cosine, remat "full", train_4k's 4,096 tokens at a
     global batch of 8 in 2 microbatches: 8 steps with an async
-    checkpoint at step 4 and a final one, the flash launches of each
-    step counted (the counts set to 0 just before the run), the loss
+    checkpoint at the last (waited for), the flash launches and the norm
+    on the master of each step recorded (the counts set to 0 just before
+    the run), the loss
     finite at every step and lower at the last than at the first; its
     warm step wall, tokens/s, model-FLOPs share, peak memory, telemetry
     profile; one more step under the profiler."""
@@ -3582,28 +3663,14 @@ def train_full_width(dev, root, card) -> dict:
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeConfig("train_4k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
     col = TelemetryCollector()
-    tr = Trainer(cfg, shape, TrainConfig(
+    tr = Trainer(cfg, None, shape, TrainConfig(
         total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
         ckpt_dir=str(root / "full"), keep_last=2, log_every=1,
         microbatches=TRAIN_MICRO, telemetry=col, device="cuda",
         log_fn=lambda m: log(f"  train {TRAIN_ARCH}: {m}")))
-    per_step = []
     step_fn = tr.step_fn
-
-    def counted_step(state, batch):
-        before = flash_counts()
-        out = step_fn(state, batch)
-        after = flash_counts()
-        per_step.append({d: after[d] - before[d] for d in after})
-        return out
-    tr.step_fn = counted_step
-    saves = []
-    for name in ("save", "save_async"):
-        def timed_save(step, tree, _fn=getattr(tr.ckpt, name), _name=name):
-            t0 = time.perf_counter()
-            _fn(step, tree)
-            saves.append((_name, step, time.perf_counter() - t0))
-        setattr(tr.ckpt, name, timed_save)
+    got = instrument_trainer(tr)
+    per_step, saves = got["launches"], got["saves"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -3611,7 +3678,7 @@ def train_full_width(dev, root, card) -> dict:
     state, hist = tr.run()
     run_s = time.perf_counter() - t0
     counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(got["peaks"] + [torch.cuda.max_memory_allocated(dev)])
     losses = [h["loss"] for h in hist]
     walls = [h["time_s"] for h in hist[1:]]
     wall = statistics.median(walls)
@@ -3662,7 +3729,7 @@ def train_full_width(dev, root, card) -> dict:
     return {"launches": counts["flash_attention_tc"], "per_step":
             TRAIN_LAUNCHES_PER_STEP, "wall": wall, "mfu": mfu, "peak": peak,
             "profile": prof_step, "params": params, "cfg": cfg,
-            "losses": losses}
+            "losses": losses, "history": hist, "norms": got["norms"]}
 
 
 def serve_from_checkpoint(dev, root, trained) -> None:
@@ -4269,6 +4336,227 @@ def mesh_path(dev, card) -> dict:
         f"{'' if wall <= MESH_PHASE_S else ', OVER'}) [{card}]")
     return {"launches": {k: v["bfloat16"] for k, v in launches.items()},
             "flash_err": flash_err}
+
+
+# phase 11f: the Trainer on the card's (1, 1) mesh, phase 11d's cell
+# (full-width llama3.2-1b, train_4k's 4,096 tokens at a global batch of 8
+# in 2 microbatches, its 8-step schedule) preempted after its first
+# MESH_TRAINER_STEPS steps (a full-depth checkpoint from the mesh), each
+# step held to phase 11d's run without a mesh at phase 11e's limits; the
+# checkpoint round trip at MESH_ROUNDTRIP_LAYERS layers, full width (the
+# ~4.6 GB state of one step), mesh -> no mesh -> mesh, bit for bit
+MESH_TRAINER_STEPS = 3
+MESH_ROUNDTRIP_LAYERS = 2
+MESH_TRAINER_PHASE_S = 150.0
+
+
+def open_card_group(dev) -> None:
+    """A one-rank default group over the card (nccl) on a free port."""
+    import socket
+
+    from repro_torch.launch import mesh as M
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    M.open_group(1, backend="nccl" if dev.type == "cuda" else "gloo",
+                 init_method=f"tcp://localhost:{port}")
+
+
+def mesh_trainer_steps(dev, mesh, root, card, trained) -> dict:
+    """`Trainer(cfg, mesh, ...)` on phase 11d's cell and schedule, counted
+    (the counters at 0 just before it), preempted after
+    MESH_TRAINER_STEPS steps. Before each mesh step the step without a
+    mesh runs on the same state and batch (uncounted; on the card's
+    one-rank mesh a DTensor's local tensor is the whole): the mesh step's
+    loss, gradient norm and step norm on the master are held to it at
+    phase 11e's limits. The trajectory is held to phase 11d's run, whose
+    states part from the mesh run's after the first update by bf16
+    products summed in another order, within one bf16 unit. A step's
+    peak memory is the allocator's peak over the mesh step alone."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.common import is_dtensor
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.training import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tr = Trainer(cfg, mesh, shape, TrainConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        ckpt_dir=str(root / "full"), keep_last=1, log_every=1,
+        microbatches=TRAIN_MICRO, device=dev.type,
+        preempt_at=MESH_TRAINER_STEPS,
+        log_fn=lambda m: log(f"  mesh train {TRAIN_ARCH}: {m}")))
+    got = instrument_trainer(tr)
+    per_step, norms, saves = got["launches"], got["norms"], got["saves"]
+    plain = build_train(cfg, microbatches=TRAIN_MICRO,
+                        total_steps=TRAIN_STEPS)
+    mesh_step, same = tr.step_fn, []
+
+    def checked_step(state, batch):
+        local = lambda t: t.to_local() if is_dtensor(t) else t  # noqa: E731
+        with uncounted():
+            s0 = tree_map(local, state)
+            new0, met0 = plain.step(s0, tree_map(local, batch))
+            same.append({"loss": float(met0["loss"]),
+                         "grad_norm": float(met0["grad_norm"]),
+                         "norm": step_norm(new0["params"], s0["params"])})
+            del s0, new0, met0
+        torch.cuda.reset_peak_memory_stats(dev)
+        return mesh_step(state, batch)
+    tr.step_fn = checked_step
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = tr.run()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak, walls = max(got["peaks"]), got["walls"]
+    rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)  # noqa: E731
+    same_rel = {k: [rel(a, b[k]) for a, b in zip(
+        [h[k] for h in hist] if k != "norm" else norms, same)]
+        for k in ("loss", "grad_norm", "norm")}
+    ref = trained["history"][:MESH_TRAINER_STEPS]
+    traj = {k: [rel(h[k], r[k]) for h, r in zip(hist, ref)]
+            for k in ("loss", "grad_norm")}
+    traj["norm"] = [rel(a, b) for a, b in zip(norms, trained["norms"])]
+    meshed = all(is_dtensor(t) for t in tree_leaves(state["params"]))
+    want = MESH_TRAINER_STEPS * TRAIN_LAUNCHES_PER_STEP
+    ok = ([h["step"] for h in hist] == list(range(MESH_TRAINER_STEPS))
+          and len(same) == MESH_TRAINER_STEPS
+          and all(math.isfinite(h["loss"]) for h in hist)
+          and max(same_rel["loss"]) <= MESH_LOSS_RTOL
+          and max(same_rel["grad_norm"] + same_rel["norm"])
+          <= MESH_GRAD_RTOL
+          and max(max(v) for v in traj.values()) <= MESH_GRAD_RTOL
+          and meshed and tr._preempted
+          and latest_step(str(root / "full")) == MESH_TRAINER_STEPS
+          and all(c[torch.bfloat16] == TRAIN_LAUNCHES_PER_STEP
+                  and c[torch.float32] == 0 for c in per_step)
+          and counts["flash_attention_tc"] == want
+          and counts["flash_attention_f32"] == 0)
+    log(f"check mesh trainer: {TRAIN_ARCH} full width on the card's (1, 1) "
+        f"mesh, {MESH_TRAINER_STEPS} steps of the {TRAIN_STEPS}-step "
+        f"schedule then the preemption checkpoint, in {run_s!r} s; each "
+        f"mesh step vs the step without a mesh from the same state: loss "
+        f"{same_rel['loss']!r} (limit {MESH_LOSS_RTOL}), grad_norm "
+        f"{same_rel['grad_norm']!r}, the master's step norm "
+        f"{same_rel['norm']!r} (limit {MESH_GRAD_RTOL}); the trajectory vs "
+        f"phase 11d's run: loss {traj['loss']!r}, grad_norm "
+        f"{traj['grad_norm']!r}, step norm {norms!r} vs "
+        f"{trained['norms'][:MESH_TRAINER_STEPS]!r}: {traj['norm']!r} "
+        f"(limit {MESH_GRAD_RTOL}); the master DTensors {meshed}; "
+        f"tensor-core flash launches per step "
+        f"{[c[torch.bfloat16] for c in per_step]} (expected "
+        f"{TRAIN_LAUNCHES_PER_STEP}), float32 "
+        f"{[c[torch.float32] for c in per_step]}; launch counters {counts}; "
+        f"checkpoint calls (kind, step, s) {saves!r} "
+        f"{'ok' if ok else 'FAILED'}")
+    log(f"time mesh train step {TRAIN_ARCH}: step walls to a synchronize "
+        f"{walls!r} s, in the loop {[h['time_s'] for h in hist]!r} s (each "
+        f"with its step without a mesh; phase 11d's loop without a mesh: "
+        f"median {trained['wall']!r} s), a mesh step's peak "
+        f"torch.cuda.max_memory_allocated {peak} bytes ({peak / 2**30!r} "
+        f"GiB; phase 11d's run {trained['peak'] / 2**30!r} GiB), the "
+        f"full-depth checkpoint from the mesh {saves[-1][2]!r} s [{card}]")
+    if not ok:
+        raise RuntimeError("mesh trainer check failed")
+    del state, tr
+    shutil.rmtree(root / "full", ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_attention_tc"], "walls": walls[1:],
+            "peak": peak, "save_s": saves[-1][2]}
+
+
+def mesh_checkpoint_round_trip(dev, mesh, root, card) -> dict:
+    """llama3.2-1b at MESH_ROUNDTRIP_LAYERS layers, full width: one step of
+    `Trainer(cfg, mesh, ...)` and its final checkpoint from the mesh,
+    restored without a mesh, that saved without a mesh and restored onto
+    the mesh: every leaf bit-equal, placed as the mesh's rules say, each
+    manifest naming its writer's mesh; save and restore seconds."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_train
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.training import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=MESH_ROUNDTRIP_LAYERS)
+    shape = ShapeConfig("train_4k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tr = Trainer(cfg, mesh, shape, TrainConfig(
+        total_steps=1, ckpt_every=TRAIN_STEPS, ckpt_dir=str(root / "rt_mesh"),
+        keep_last=1, log_every=100, microbatches=TRAIN_MICRO,
+        device=dev.type, log_fn=lambda *a: None))
+    got = instrument_trainer(tr)
+    on_mesh, _ = tr.run()
+    secs = {"save from the mesh": got["saves"][-1][2]}
+
+    def timed(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+    plain = timed("restore without a mesh", restore_checkpoint,
+                  str(root / "rt_mesh"), 1, build_train(cfg).state_like(),
+                  device=dev)
+    timed("save without a mesh", save_checkpoint, str(root / "rt_plain"), 1,
+          plain)
+    back = timed("restore onto the mesh", restore_checkpoint,
+                 str(root / "rt_plain"), 1, tr.bundle.in_specs[0], mesh=mesh,
+                 shardings=tr.bundle.in_placements[0])
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731,E501
+    differ = [p for (p, a), b, c in zip(tree_leaves(on_mesh, paths=True),
+                                        tree_leaves(plain),
+                                        tree_leaves(back))
+              if not (torch.equal(full(a), b) and torch.equal(full(c), b)
+                      and full(a).dtype == b.dtype == full(c).dtype)]
+    want = dict(tree_leaves(tr.bundle.in_placements[0], paths=True,
+                            leaf=lambda x: x is None
+                            or isinstance(x, tuple)))
+    misplaced = [p for p, t in tree_leaves(back, paths=True)
+                 if tuple(getattr(t, "placements", ())) != tuple(
+                     want[p] or ())]
+    manifests = [json.loads((root / d / f"step_{1:09d}" / "manifest.json")
+                            .read_text()).get("mesh")
+                 for d in ("rt_mesh", "rt_plain")]
+    n = sum(t.numel() * t.element_size() for t in tree_leaves(plain))
+    ok = (not differ and not misplaced
+          and manifests == [{"shape": [1, 1], "axis_names": ["data",
+                                                            "model"]}, None])
+    log(f"check mesh checkpoint round trip: {TRAIN_ARCH} {MESH_ROUNDTRIP_LAYERS}"
+        f" layers full width ({n} bytes of state, {len(tree_leaves(plain))} "
+        f"leaves) mesh -> no mesh -> mesh: leaves that differ {differ}, "
+        f"misplaced {misplaced}, manifests' meshes {manifests}; seconds "
+        f"{secs!r} [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("mesh checkpoint round trip failed")
+    del on_mesh, plain, back, tr
+    torch.cuda.empty_cache()
+    return {"secs": secs, "bytes": n}
+
+
+def mesh_train_path(dev, card, trained) -> dict:
+    """Phase 11f: the Trainer on a one-rank nccl group's (1, 1) mesh over
+    the card, and its checkpoints across meshes (see the module
+    docstring)."""
+    from repro_torch.launch import mesh as M
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "smoke_mesh_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    open_card_group(dev)
+    try:
+        mesh = M.make_test_mesh(1, 1, device_type=dev.type)
+        steps = mesh_trainer_steps(dev, mesh, root, card, trained)
+        trip = mesh_checkpoint_round_trip(dev, mesh, root, card)
+    finally:
+        M.close_group()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"mesh trainer phase wall {wall!r} s (budget {MESH_TRAINER_PHASE_S} "
+        f"s{'' if wall <= MESH_TRAINER_PHASE_S else ', OVER'}) [{card}]")
+    return {**steps, "round_trip": trip}
 
 
 CODESIGN_ARCHS = ("qwen2-0.5b", "llama3.2-1b", "llama3.2-3b", "minicpm-2b")
@@ -5177,6 +5465,12 @@ def main() -> int:
     # and to the step without a mesh
     meshed = mesh_path(dev, card)
 
+    phase("11f")
+    # -- 11f. the Trainer on the card's (1, 1) mesh: phase 11d's cell for
+    # 3 steps (counted) held to 11d's run without a mesh, its preemption
+    # checkpoint, and a 2-layer checkpoint round trip across meshes
+    meshed_train = mesh_train_path(dev, card, trained)
+
     phase("12")
     # -- 12. co-design, the measured loop at full width, the compile
     # service and the fleet on the card, each counted and held to the CPU;
@@ -5337,6 +5631,10 @@ def main() -> int:
     rows["flash_attention_tc"].update(
         mesh_launches=meshed["launches"],
         mesh_prefill_shape_max_abs_err=meshed["flash_err"])
+    # phase 11f: the mesh Trainer's launches (64 a full-width step)
+    rows["flash_attention_tc"].update(
+        mesh_trainer_launches=meshed_train["launches"],
+        mesh_trainer_launches_per_step=TRAIN_LAUNCHES_PER_STEP)
     rows["flash_attention"].update(
         train_reduced_launches=trained["reduced_f32_launches"],
         train_grad_max_rel_err=trained["func"]["worst"][torch.float32])
@@ -5367,7 +5665,9 @@ def main() -> int:
             or trained["launches"] != TRAIN_STEPS * TRAIN_LAUNCHES_PER_STEP \
             or trained["reduced_f32_launches"] <= 0 \
             or meshed["launches"]["prefill"] <= 0 \
-            or meshed["launches"]["train"] <= 0:
+            or meshed["launches"]["train"] <= 0 \
+            or meshed_train["launches"] != MESH_TRAINER_STEPS \
+            * TRAIN_LAUNCHES_PER_STEP:
         log("FAILED: a kernel of a path was never launched")
         return 1
     log(f"smoke total wall: {time.perf_counter() - t_smoke!r} s [{card}]")

@@ -37,15 +37,18 @@ import torch
 F32 = torch.float32
 
 
-def tree_leaves(tree, paths=False):
+def tree_leaves(tree, paths=False, leaf=None):
     """The leaves of a tree of nested dicts, lists and tuples in the
     reference's (jax's) order: dict keys sorted, items by index. With
     `paths`, [(path, leaf)], the keys and indices on the way joined by
-    "/" ("params/blocks/attn/wq", "step"): the checkpoint's leaf paths."""
+    "/" ("params/blocks/attn/wq", "step"): the checkpoint's leaf paths.
+    `leaf(x)` True makes a node a leaf."""
     out = []
 
     def walk(t, prefix):
-        if isinstance(t, dict):
+        if leaf is not None and leaf(t):
+            out.append((prefix[:-1], t) if paths else t)
+        elif isinstance(t, dict):
             for k in sorted(t):
                 walk(t[k], f"{prefix}{k}/")
         elif isinstance(t, (list, tuple)):

@@ -48,7 +48,7 @@ def _tiny_cfg():
 
 
 def _trainer(d, **kw):
-    return Trainer(_tiny_cfg(), SHAPE, TrainConfig(
+    return Trainer(_tiny_cfg(), None, SHAPE, TrainConfig(
         ckpt_dir=str(d), log_every=100, log_fn=lambda *a: None,
         device="cpu", **kw))
 

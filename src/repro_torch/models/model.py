@@ -89,6 +89,7 @@ from repro_torch.models.common import chunked_softmax_xent, \
     current_mesh, dense_init, dtype_of, embed, gathered, logical_to_pspec, \
     norm, norm_init, norm_specs, param, shard_act, sharding_ctx, \
     sinusoid_at, sinusoidal_positions, to_placements
+from repro_torch.runtime.telemetry import span
 
 KV_FAMILIES = ("dense", "vlm", "moe")
 FAMILIES = KV_FAMILIES + ("hybrid", "ssm", "audio")
@@ -549,7 +550,9 @@ class Model(nn.Module):
     # the last position. W (cache window) == padded cache length.
     # ------------------------------------------------------------------
     def prefill(self, batch, W=None):
-        with self._ctx():
+        tokens = batch["tokens"]
+        with self._ctx(), span("model.prefill", device=tokens.device,
+                               rows=tokens.shape[0] * tokens.shape[1]):
             return self._prefill(batch, W)
 
     def _prefill(self, batch, W=None):
@@ -569,11 +572,13 @@ class Model(nn.Module):
             if W_eff < S:
                 raise ValueError(f"cache window {W_eff} is shorter than "
                                  f"the prompt ({S} tokens)")
-            if W_eff == S:
-                return torch.stack(rows)
-            out = rows[0].new_zeros((len(rows), B, W_eff) + rows[0].shape[2:])
-            out[:, :, :S] = torch.stack(rows)
-            return out
+            with span("kv.pad", device=rows[0].device):
+                if W_eff == S:
+                    return torch.stack(rows)
+                out = rows[0].new_zeros((len(rows), B, W_eff)
+                                        + rows[0].shape[2:])
+                out[:, :, :S] = torch.stack(rows)
+                return out
 
         ks, vs = [], []
         if cfg.family == "hybrid":
@@ -750,21 +755,23 @@ class Model(nn.Module):
         mask, since slots freeze monotonically).
         """
         toks, lives = [], []
-        for _ in range(n_tokens):
-            logits, cache = self.decode_step(cache, token, pos)
-            tok = sample_fn(logits)
-            live = ~done
-            tok = torch.where(live, tok, token[:, 0]).to(torch.int32)
-            inc = live.to(torch.int32)
-            emitted = emitted + inc
-            pos = pos + inc
-            done = done | (emitted >= max_new) | (live & (eos >= 0)
-                                                  & (tok == eos))
-            token = tok[:, None]
-            toks.append(tok)
-            lives.append(live)
-        return (cache, token, pos, emitted, done, torch.stack(toks),
-                torch.stack(lives))
+        with span("model.decode_loop", device=token.device, steps=n_tokens,
+                  slots=token.shape[0]):
+            for _ in range(n_tokens):
+                logits, cache = self.decode_step(cache, token, pos)
+                tok = sample_fn(logits)
+                live = ~done
+                tok = torch.where(live, tok, token[:, 0]).to(torch.int32)
+                inc = live.to(torch.int32)
+                emitted = emitted + inc
+                pos = pos + inc
+                done = done | (emitted >= max_new) | (live & (eos >= 0)
+                                                      & (tok == eos))
+                token = tok[:, None]
+                toks.append(tok)
+                lives.append(live)
+            return (cache, token, pos, emitted, done, torch.stack(toks),
+                    torch.stack(lives))
 
     # ------------------------------------------------------------------
     # counting

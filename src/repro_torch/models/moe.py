@@ -50,6 +50,7 @@ from torch import nn
 
 from repro_torch.models.common import act_fn, axis_sizes, current_mesh, \
     dense_init, dtype_of, is_dtensor, param, shard_act
+from repro_torch.runtime.telemetry import span
 
 # token counts up to this take the 2-D weight-stationary path under a
 # mesh (read at call time; 0 turns the path off)
@@ -114,47 +115,55 @@ def _moe_local(x, router_w, w1, w3, w2, cfg, e_offset=0, capacity=None):
     """x: (T, d) -> (y (T, d) in x's dtype, aux). w*: the local experts
     (E_loc, d, f_loc) from global expert `e_offset`; an assignment routed
     outside [e_offset, e_offset + E_loc) adds nothing here. `capacity`
-    defaults to ceil(T * k * capacity_factor / E)."""
+    defaults to ceil(T * k * capacity_factor / E). Spans: `moe` (counts
+    T, T * k assignments, E_loc * C expert rows) over `moe.route`,
+    `moe.dispatch`, `moe.experts` and `moe.combine`."""
     T, d = x.shape
     E = cfg.n_experts
     E_loc = w1.shape[0]
     k = cfg.top_k
     act = act_fn(cfg.act)
-
-    gates, idx, aux = _route(x.float(), router_w, k)
-    flat_e = idx.reshape(-1)                        # (T*k,) token-major
-    flat_g = gates.reshape(-1)
-
-    # rank of each assignment among its expert's, in token order
-    onehot = _one_hot(flat_e, E)                    # (T*k, E)
-    slot = (torch.cumsum(onehot, dim=0) - 1).gather(
-        1, flat_e[:, None])[:, 0]
     C = capacity or max(1, int(math.ceil(T * k * cfg.capacity_factor / E)))
-    le = flat_e - e_offset
-    keep = slot < C
-    if E_loc != E:
-        keep = keep & (le >= 0) & (le < E_loc)
-        le = torch.clamp(le, 0, E_loc - 1)
-    slot_c = torch.clamp(slot, 0, C - 1)
+    dev = x.device
+    with span("moe", device=dev, tokens=T, assignments=T * k,
+              expert_rows=E_loc * C):
+        with span("moe.route", device=dev):
+            gates, idx, aux = _route(x.float(), router_w, k)
+            flat_e = idx.reshape(-1)                # (T*k,) token-major
+            flat_g = gates.reshape(-1)
 
-    # dispatch: each kept assignment writes its own (expert, rank) row;
-    # the others write the spare row C, cut off below
-    buf = x.new_zeros((E_loc, C + 1, d))
-    buf[le, torch.where(keep, slot, C)] = \
-        x[:, None].expand(T, k, d).reshape(T * k, d)
-    buf = buf[:, :C]
+            # rank of each assignment among its expert's, in token order
+            onehot = _one_hot(flat_e, E)            # (T*k, E)
+            slot = (torch.cumsum(onehot, dim=0) - 1).gather(
+                1, flat_e[:, None])[:, 0]
+            le = flat_e - e_offset
+            keep = slot < C
+            if E_loc != E:
+                keep = keep & (le >= 0) & (le < E_loc)
+                le = torch.clamp(le, 0, E_loc - 1)
+            slot_c = torch.clamp(slot, 0, C - 1)
 
-    h = act(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
-    out_e = torch.bmm(h, w2)                        # (E_loc, C, d)
+        # dispatch: each kept assignment writes its own (expert, rank) row;
+        # the others write the spare row C, cut off below
+        with span("moe.dispatch", device=dev):
+            buf = x.new_zeros((E_loc, C + 1, d))
+            buf[le, torch.where(keep, slot, C)] = \
+                x[:, None].expand(T, k, d).reshape(T * k, d)
+            buf = buf[:, :C]
 
-    # combine: gather the expert outputs back, weighted by the gates in
-    # the working dtype, and add a token's k contributions in order
-    contrib = out_e[le, slot_c] * (flat_g * keep).to(
-        out_e.dtype)[:, None]
-    contrib = contrib.view(T, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
+        with span("moe.experts", device=dev):
+            h = act(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+            out_e = torch.bmm(h, w2)                # (E_loc, C, d)
+
+        # combine: gather the expert outputs back, weighted by the gates
+        # in the working dtype, and add a token's k contributions in order
+        with span("moe.combine", device=dev):
+            contrib = out_e[le, slot_c] * (flat_g * keep).to(
+                out_e.dtype)[:, None]
+            contrib = contrib.view(T, k, d)
+            y = contrib[:, 0]
+            for j in range(1, k):
+                y = y + contrib[:, j]
     return y, aux
 
 

@@ -14,6 +14,7 @@ from torch import nn
 from repro_torch.models import attention, moe
 from repro_torch.models.common import act_fn, dense_init, dtype_of, \
     gathered, norm, norm_init, norm_specs, param, shard_act
+from repro_torch.runtime.telemetry import span
 
 
 # ---------------------------------------------------------------------------
@@ -85,15 +86,17 @@ def dense_block_apply(p, x, positions, cfg):
 
 
 def dense_block_prefill(p, x, positions, cfg):
-    a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
-                                     cfg)
+    with span("attn", device=x.device):
+        a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg),
+                                         positions, cfg)
     x = x + a
     return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg), (k, v)
 
 
 def dense_block_decode(p, x, ck, cv, pos, cfg, ring=False, scales=None):
-    out = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos, cfg,
-                           ring=ring, scales=scales)
+    with span("attn", device=x.device):
+        out = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos, cfg,
+                               ring=ring, scales=scales)
     a, ck, cv = out[:3]
     x = x + a
     y = x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg)
@@ -153,16 +156,18 @@ def moe_block_apply(p, x, positions, cfg):
 
 
 def moe_block_prefill(p, x, positions, cfg):
-    a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
-                                     cfg)
+    with span("attn", device=x.device):
+        a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg),
+                                         positions, cfg)
     x = x + a
     y, aux = _moe_ffn(p, norm(x, p.n2, cfg), cfg)
     return x + y, (k, v), aux
 
 
 def moe_block_decode(p, x, ck, cv, pos, cfg, ring=False, scales=None):
-    out = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos, cfg,
-                           ring=ring, scales=scales)
+    with span("attn", device=x.device):
+        out = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos, cfg,
+                               ring=ring, scales=scales)
     a, ck, cv = out[:3]
     x = x + a
     y, _ = _moe_ffn(p, norm(x, p.n2, cfg), cfg)
@@ -184,8 +189,9 @@ enc_block_specs = dense_block_specs
 
 
 def enc_block_apply(p, x, cfg):
-    a, _, _ = attention.attend_train(p.attn, norm(x, p.n1, cfg), None, cfg,
-                                     use_rope=False, causal=False)
+    with span("attn", device=x.device):
+        a, _, _ = attention.attend_train(p.attn, norm(x, p.n1, cfg), None,
+                                         cfg, use_rope=False, causal=False)
     x = x + a
     return x + mlp_apply(p.mlp, norm(x, p.n2, cfg), cfg)
 
@@ -226,8 +232,9 @@ def xdec_block_specs(cfg):
 def xdec_block_apply(p, x, enc_out, positions, cfg):
     """Causal self-attention (no rotation), cross-attention against
     `enc_out`, MLP. Returns (y, (k, v), (xk, xv))."""
-    a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg), positions,
-                                     cfg, use_rope=False)
+    with span("attn", device=x.device):
+        a, k, v = attention.attend_train(p.attn, norm(x, p.n1, cfg),
+                                         positions, cfg, use_rope=False)
     x = x + a
     xk, xv = attention.cross_kv(p.xattn, enc_out)
     x = x + attention.cross_attend_train(p.xattn, norm(x, p.n2, cfg),
@@ -239,8 +246,9 @@ def xdec_block_apply(p, x, enc_out, positions, cfg):
 def xdec_block_decode(p, x, ck, cv, xk, xv, pos, cfg):
     """One token: self-attention against the cache (written in place),
     cross-attention against the static encoder K/V, MLP."""
-    a, ck, cv = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv, pos,
-                                 cfg, use_rope=False)
+    with span("attn", device=x.device):
+        a, ck, cv = attention.decode(p.attn, norm(x, p.n1, cfg), ck, cv,
+                                     pos, cfg, use_rope=False)
     x = x + a
     x = x + attention.cross_decode(p.xattn, norm(x, p.n2, cfg), xk, xv)
     return x + mlp_apply(p.mlp, norm(x, p.n3, cfg), cfg), ck, cv

@@ -15,8 +15,6 @@ from typing import List, Tuple
 
 import numpy as np
 
-from repro_torch.serving.engine import Request
-
 
 @dataclasses.dataclass(frozen=True)
 class Phase:
@@ -45,6 +43,8 @@ def run_scenario(eng, scenario: Scenario, *, seed: int = 0,
     The FINAL phase drains the engine before its snapshot, so scenarios
     compose on a reused (compile-warm) engine without leaking live slots
     into the next replay."""
+    # imported here: the engine and the model import this package's spans
+    from repro_torch.serving.engine import Request
     rng = np.random.default_rng(seed)
     windows = []
     rid = rid_base

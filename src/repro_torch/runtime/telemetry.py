@@ -20,12 +20,33 @@ interpretation (KV bytes per row, weight stream, hierarchy split) lives
 in `repro_torch.runtime.profile`, which converts windows into the frozen
 `repro_torch.workloads.profiler.Profile` schema, and in
 `repro_torch.runtime.governor`, which turns windows into macro `Traffic`.
+
+Program spans (`span`, `spans`) time the serve path from inside: where
+a prefill's or a decode step's device time goes (attention, the MoE FFN
+and its dispatch, the KV-cache build) and what the host was doing when
+the device ran dry. A span records only while a torch profiler is
+recording; otherwise `span()` returns one shared no-op object after that
+single check, so the serve path pays one call and creates no event.
+While recording, each span is also a profiler range of its name (the
+record function `torch.profiler.record_function` opens, through its
+low-cost C++ entry), so it sits on the profiler's clock beside the
+kernels; `CLOCK_OFFSET_NS` maps the registry's `time.perf_counter_ns()`
+stamps (the engine's and the benchmark's host clock) onto the profiler's
+Unix-epoch event stamps. Device time is a pair of CUDA events on the
+current stream (the stream's time between them, its idle included) or,
+off the card, the host duration; events are resolved when the registry
+is read, after one synchronize, never on the serve path.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 
 class VirtualClock:
@@ -72,7 +93,6 @@ class TelemetryWindow:
     queue_samples: int = 0
     kv_row_steps: float = 0.0
     kv_lifetimes_s: Tuple[float, ...] = ()
-    queue_waits_s: Tuple[float, ...] = ()
     train_steps: int = 0
     train_tokens: int = 0
     train_time_s: float = 0.0
@@ -143,7 +163,6 @@ class TelemetryCollector:
         self._queue_n = 0
         self._kv_row_steps = 0.0
         self._kv_lifetimes: List[float] = []
-        self._queue_waits: List[float] = []
         self._train_steps = 0
         self._train_tokens = 0
         self._train_time = 0.0
@@ -182,7 +201,6 @@ class TelemetryCollector:
     def on_retire(self, stats) -> None:
         self._n_retired += 1
         self._kv_lifetimes.append(stats.service_s)
-        self._queue_waits.append(stats.queue_wait_s)
 
     def tick(self, n_steps: int = 1) -> None:
         """Advance the virtual clock across an IDLE engine step (no
@@ -214,9 +232,134 @@ class TelemetryCollector:
             queue_depth_sum=self._queue_sum, queue_samples=self._queue_n,
             kv_row_steps=self._kv_row_steps,
             kv_lifetimes_s=tuple(self._kv_lifetimes),
-            queue_waits_s=tuple(self._queue_waits),
             train_steps=self._train_steps, train_tokens=self._train_tokens,
             train_time_s=self._train_time)
         if reset:
             self._reset()
         return win
+
+
+# ---------------------------------------------------------------------------
+# program spans
+# ---------------------------------------------------------------------------
+
+# spans kept in memory (oldest dropped first, counted in `spans_dropped`)
+SPAN_CAPACITY = 1 << 17
+# perf_counter_ns stamp + CLOCK_OFFSET_NS = the profiler's event stamp
+CLOCK_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
+
+_profiling = torch._C._autograd._profiler_enabled
+# a `record_function` range at a tenth of its host cost
+_RANGE = torch._C._profiler._RecordFunctionFast
+_registry: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
+_ids = itertools.count()
+_open = threading.local()
+_dropped = 0
+
+
+class _Off:
+    """The span of a run no profiler records: does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class Span:
+    """One recorded span: `name`, `id`, `parent` (the id of the innermost
+    span open around it, or None), `t0_ns` / `t1_ns` on
+    `time.perf_counter_ns()`, `counts` (integers; `rids` a tuple of
+    request ids), and, once read through `spans()`, `device_s` and
+    `self_s` (its device time less its children's)."""
+    __slots__ = ("name", "id", "parent", "t0_ns", "t1_ns", "counts",
+                 "device_s", "self_s", "_stream", "_events", "_range")
+
+    def __init__(self, name, device, counts):
+        self.name, self.counts = name, counts
+        self.id = next(_ids)
+        self.device_s = self.self_s = None
+        device = torch.device(device) if device is not None else (
+            torch.device("cuda") if torch.cuda.is_available()
+            and torch.cuda.is_initialized() else None)
+        self._stream = (torch.cuda.current_stream(device)
+                        if device is not None and device.type == "cuda"
+                        else None)
+        self._events = None
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        self._range = _RANGE(self.name)
+        self._range.__enter__()
+        self.t0_ns = time.perf_counter_ns()
+        if self._stream is not None:
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        global _dropped
+        if self._events is not None:
+            self._events[1].record(self._stream)
+        self.t1_ns = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        self._range = None
+        _open.stack.pop()
+        if len(_registry) == _registry.maxlen:
+            _dropped += 1
+        _registry.append(self)
+        return False
+
+
+def span(name: str, *, device=None, **counts):
+    """A context manager timing the code inside it as the span `name`
+    while a torch profiler records; the shared no-op otherwise. `device`:
+    where its work runs (CUDA: device time from events on the current
+    stream; None: the current CUDA device once CUDA is initialized, else
+    the host); `counts`: integers (or `rids`, request ids) kept with it."""
+    if not _profiling():
+        return _OFF
+    return Span(name, device, counts)
+
+
+def spans(since_ns: Optional[int] = None,
+          until_ns: Optional[int] = None) -> List[Span]:
+    """The recorded spans that began and ended inside [since_ns,
+    until_ns] (perf_counter_ns), in the order they began, with `device_s`
+    and `self_s` resolved (one device synchronize if any is unresolved)."""
+    lo = since_ns if since_ns is not None else -(1 << 62)
+    hi = until_ns if until_ns is not None else 1 << 62
+    out = sorted((s for s in list(_registry)
+                  if lo <= s.t0_ns and s.t1_ns <= hi),
+                 key=lambda s: (s.t0_ns, s.id))
+    pending = [s for s in out if s.device_s is None]
+    if any(s._events is not None for s in pending):
+        torch.cuda.synchronize()
+    for s in pending:
+        if s._events is not None:
+            s.device_s = s._events[0].elapsed_time(s._events[1]) / 1000.0
+            s._events = s._stream = None
+        else:
+            s.device_s = (s.t1_ns - s.t0_ns) / 1e9
+    children: Dict[int, float] = {}
+    for s in out:
+        if s.parent is not None:
+            children[s.parent] = children.get(s.parent, 0.0) + s.device_s
+    for s in out:
+        s.self_s = s.device_s - children.get(s.id, 0.0)
+    return out
+
+
+def spans_dropped() -> int:
+    """Spans pushed out of the registry by newer ones since the start."""
+    return _dropped

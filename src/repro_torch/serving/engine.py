@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.runtime.telemetry import span
 from repro_torch.serving.sampling import sample_host, sample_tokens
 
 TOP_K_MAX = 64      # default width of the device sampler's top-k candidates
@@ -221,6 +222,13 @@ class ServeEngine:
         """One prefill for equal-length prompts, batch padded to a
         power-of-two bucket (edge repeat); only the real rows are
         written back."""
+        B, S = len(items), len(items[0][1].prompt)
+        with span("engine.admit", device=self.device,
+                  rids=tuple(r.rid for _, r in items), B=B,
+                  Bp=1 << (B - 1).bit_length(), S=S):
+            self._prefill_group(items)
+
+    def _prefill_group(self, items):
         B = len(items)
         toks = np.stack([r.prompt for _, r in items]).astype(np.int32)
         Bp = 1 << (B - 1).bit_length()
@@ -248,8 +256,9 @@ class ServeEngine:
                                 k_max=self.top_k_max)[:B]
             r_topk, r_maxnew, r_eos = meta_d[:, :B]
             fin = (r_maxnew <= 1) | ((r_eos >= 0) & (tok == r_eos))
-            for name, c in self.cache.items():
-                c[:, idx] = rows[name][:, :B].to(c.dtype)
+            with span("kv.slot_write", device=self.device):
+                for name, c in self.cache.items():
+                    c[:, idx] = rows[name][:, :B].to(c.dtype)
             self.pos[idx] = rpos[:B]
             self.last_tok[idx, 0] = tok
             self.emitted[idx] = 1
@@ -271,8 +280,9 @@ class ServeEngine:
         first = np.array(
             [sample_host(logits_np[i], r.temperature, r.top_k, self.rng)
              for i, (_, r) in enumerate(items)], np.int32)
-        for name, c in self.cache.items():
-            c[:, idx] = cache_g[name][:, :B].to(c.dtype)
+        with span("kv.slot_write", device=self.device):
+            for name, c in self.cache.items():
+                c[:, idx] = cache_g[name][:, :B].to(c.dtype)
         self.pos[idx] = rpos[:B]
         self._record_first_tokens(items, first)
 
@@ -353,41 +363,44 @@ class ServeEngine:
     def _reconcile(self, toks, live, ready, snapshot):
         """Fold a (K, slots) chunk back into the request streams recorded
         at dispatch time and retire finished slots (one blocking sync)."""
-        if ready is not None:
-            ready.synchronize()
-        self.host_syncs += 1
-        toks, live = toks.numpy(), live.numpy()
-        if self.telemetry is not None:
-            # per-slot emitted counts are the live-mask column sums; the
-            # hook runs BEFORE the retire loop so a virtual clock has
-            # advanced past this chunk when retire timestamps are stamped
-            em = live.sum(axis=0)
-            rows = [min(self._ctx[s]
-                        + (int(em[s]) if self.active[s] is r else 0),
-                        self.window)
-                    for s, r in enumerate(snapshot) if r is not None]
-            self.telemetry.on_chunk(
-                toks.shape[0],
-                int(sum(int(em[s]) for s, r in enumerate(snapshot)
-                        if r is not None)),
-                rows, len(self.queue))
-        for slot, req in enumerate(snapshot):
-            if req is None:
-                continue
-            n_app = 0
-            for k in range(toks.shape[0]):
-                if not live[k, slot]:
-                    break                 # slot froze earlier in the chunk
-                req.out_tokens.append(int(toks[k, slot]))
-                n_app += 1
-            if self.active[slot] is not req:
-                continue                  # slot re-admitted since dispatch
-            self._ctx[slot] = min(self._ctx[slot] + n_app, self.window)
-            self._tok_np[slot, 0] = req.out_tokens[-1]
-            if (len(req.out_tokens) >= req.max_new_tokens
-                    or (req.eos_id is not None
-                        and req.out_tokens[-1] == req.eos_id)):
-                self._retire(slot)
+        rids = tuple(r.rid for r in snapshot if r is not None)
+        with span("engine.reconcile", device=self.device, rids=rids):
+            if ready is not None:
+                ready.synchronize()
+            self.host_syncs += 1
+            toks, live = toks.numpy(), live.numpy()
+            if self.telemetry is not None:
+                # per-slot emitted counts are the live-mask column sums;
+                # the hook runs BEFORE the retire loop so a virtual clock
+                # has advanced past this chunk when retire timestamps are
+                # stamped
+                em = live.sum(axis=0)
+                rows = [min(self._ctx[s]
+                            + (int(em[s]) if self.active[s] is r else 0),
+                            self.window)
+                        for s, r in enumerate(snapshot) if r is not None]
+                self.telemetry.on_chunk(
+                    toks.shape[0],
+                    int(sum(int(em[s]) for s, r in enumerate(snapshot)
+                            if r is not None)),
+                    rows, len(self.queue))
+            for slot, req in enumerate(snapshot):
+                if req is None:
+                    continue
+                n_app = 0
+                for k in range(toks.shape[0]):
+                    if not live[k, slot]:
+                        break             # slot froze earlier in the chunk
+                    req.out_tokens.append(int(toks[k, slot]))
+                    n_app += 1
+                if self.active[slot] is not req:
+                    continue              # slot re-admitted since dispatch
+                self._ctx[slot] = min(self._ctx[slot] + n_app, self.window)
+                self._tok_np[slot, 0] = req.out_tokens[-1]
+                if (len(req.out_tokens) >= req.max_new_tokens
+                        or (req.eos_id is not None
+                            and req.out_tokens[-1] == req.eos_id)):
+                    self._retire(slot)
 
     def _may_emit(self):
         """Host-side prediction of whether any slot can still produce

@@ -29,7 +29,9 @@ Phases:
      tensor-core kernel, float32 through the float32 kernel, the
      non-causal launches counted apart), and that a key tile outside
      every query's window is skipped (the tensor-core kernel at a 64-key
-     window against none);
+     window against none); decode attention at the benchmark cell's shape
+     (16 slots, a 12,336-row window, mixtral's heads) at full and at a
+     mixed fill, each slot within 2^-6 of its largest plain output;
   4. drive the lattice path, `characterize` over the default 96-point
      design lattice, with the launch counters set to 0 just before it;
      check that each topology group's transient was one launch of the
@@ -133,10 +135,12 @@ Phases:
      8 of 32 layers (bf16, ring cache of its 4096-token window), 16
      requests of 256-5120 prompt tokens: 8 tensor-core flash launches per
      prefill dispatch, those past the window counted apart, every request
-     its budget, prefill logits kernel vs plain flash at 1024 and 5120
-     tokens, walls and spans; zamba2-2.7b at full width and depth (bf16,
-     2,422,532,000 weights), 16 requests of 128-1024 tokens: 9 hd = 80
-     tensor-core launches per prefill dispatch, budgets, logits, walls;
+     its budget, one decode-attention launch per layer and decode step
+     (as in every family's counted serve), prefill logits kernel vs plain
+     flash at 1024 and 5120 tokens, walls and spans; zamba2-2.7b at full
+     width and depth (bf16, 2,422,532,000 weights), 16 requests of
+     128-1024 tokens: 9 hd = 80 tensor-core launches per prefill
+     dispatch, budgets, logits, walls;
      then reduced mixtral (prompts past its window), zamba2 and int8-KV
      llama in float32 on the card against the CPU: greedy streams equal
      (device and host mode), prefill logits within 2e-5 of the largest;
@@ -284,7 +288,9 @@ Phases:
      two, both at the hybrid serve's four and the moe serve's windowed
      one, SDPA there with an explicit window mask, both at whisper's
      non-causal encoder and cross shapes, SDPA with is_causal=False, and
-     at internvl2's four), their plain versions,
+     at internvl2's four), the decode-attention kernel at the cell's
+     shape, full and mixed fill, against its byte bound (SDPA with a mask
+     of the filled rows beside it), their plain versions,
      their bounds and the library calls (`torch.linalg.solve_ex` and
      `torch.linalg.solve`; `scaled_dot_product_attention` in the same
      call), and the warm compile and `run_batch` walls; then one warm
@@ -2056,6 +2062,19 @@ SKIP_WINDOW, SKIP_MAX_SHARE = 64, 0.25
 # the plain version without its last key lies outside the limit
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 FLASH_BF16_RTOL = 2.0 ** -6
+# decode attention (csrc/decode_attention.cu) at the benchmark cell's
+# shape: mixtral-8x7b's heads (K = 8, G = 4, hd = 128), 16 slots, the
+# 12,336-row window of 12,288-token prompts and 48 new tokens; at full fill
+# (every slot's window filled) and at a mixed fill (idle slots, 1k-12k
+# rows, past the window); the check holds each slot within DECODE_BF16_RTOL
+# of its largest plain output (FLASH_BF16_RTOL's 4 units of bf16
+# rounding: a long slot's output averages down to a few hundredths)
+DECODE_CELL = (16, 12336, 8, 128, 4)            # B, W, K, hd, G
+DECODE_FILLS = {
+    "full fill": (12335,) * 16,
+    "mixed fill": (0, 1023, 3071, 12335, 0, 0, 16, 255, 256, 257, 4000,
+                   12400, 5000, 0, 8191, 2047)}
+DECODE_BF16_RTOL = 2.0 ** -6
 # prefill logits through the kernel vs through the plain flash version,
 # both bf16 on the card, relative to the logits' largest magnitude: the
 # bf16 tolerance of the reference's kernel test
@@ -2109,6 +2128,22 @@ def flash_counts(noncausal: bool = False) -> dict:
     key = "noncausal_launches" if noncausal else "launches"
     return {torch.bfloat16: getattr(kernel.flash_attention_tc, key),
             torch.float32: getattr(kernel.flash_attention_f32, key)}
+
+
+def decode_launches() -> int:
+    """Launches so far of the decode-attention kernel."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    return decode_attention.launches
+
+
+def decode_per_step(cfg) -> int:
+    """Decode-attention launches of one decode step: one per attention
+    layer's self-attention over the cache (hybrid: one per application of
+    the shared block; audio: its decoder layers, whose cross-attention is
+    plain torch; ssm: none)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
 def flash_limit(dtype, want) -> float:
@@ -2202,6 +2237,107 @@ def check_flash_attention(dev) -> dict:
     return worst
 
 
+def decode_inputs(positions, dev, shape=DECODE_CELL):
+    """q (B, 1, H, hd) and the caches (B, W, K, hd) in bf16, every row
+    drawn (rows past a fill hold values the kernel must not read), and
+    pos (B,) int32 on the card."""
+    B, W, K, hd, G = shape
+    rng = np.random.default_rng(SEED + W)
+    q = torch.as_tensor(rng.standard_normal((B, 1, K * G, hd)),
+                        dtype=torch.bfloat16, device=dev)
+    ck, cv = (torch.as_tensor(rng.standard_normal((B, W, K, hd)),
+                              dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    return q, ck, cv, torch.tensor(positions, dtype=torch.int32, device=dev)
+
+
+def decode_bytes(q, ck, pos) -> int:
+    """The least bytes one decode-attention call moves: every filled row's
+    K and V once (filled rows x K x hd x 2 x itemsize), q read and o
+    written."""
+    from repro_torch.kernels.decode_attention.kernel import filled_rows
+    W, K, hd = ck.shape[1:]
+    rows = int(filled_rows(pos, W).sum())
+    return (rows * K * hd * 2 * ck.element_size()
+            + 2 * q.numel() * q.element_size())
+
+
+def check_decode_attention(dev) -> float:
+    """The decode-attention kernel against its plain version on the card
+    at the cell's shape, full and mixed fill: one launch a call, each slot
+    within DECODE_BF16_RTOL of its largest plain output. Returns the
+    largest error."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention, decode_attention_plain)
+    worst = 0.0
+    for label, positions in DECODE_FILLS.items():
+        q, ck, cv, pos = decode_inputs(positions, dev)
+        before = decode_attention.launches
+        got = decode_attention(q, ck, cv, pos)
+        launched = decode_attention.launches - before
+        want = decode_attention_plain(q, ck, cv, pos)
+        torch.cuda.synchronize()
+        B = q.shape[0]
+        gap = (got.float() - want.float()).abs().reshape(B, -1).amax(1)
+        limit = DECODE_BF16_RTOL * want.float().abs().reshape(B, -1).amax(1)
+        ok = (launched == 1 and bool(torch.isfinite(got).all())
+              and bool((gap <= limit).all()))
+        log(f"check decode_attention bf16 {label} (B, W, K, hd, G) = "
+            f"{DECODE_CELL}: max|do| vs plain {float(gap.max())!r}, worst "
+            f"slot at {float((gap / limit).max())!r} of its limit (limits "
+            f"{float(limit.min())!r}..{float(limit.max())!r}), launches "
+            f"{launched} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"decode_attention check {label} failed")
+        worst = max(worst, float(gap.max()))
+    return worst
+
+
+def time_decode_attention(dev, card) -> dict:
+    """The decode-attention kernel at the cell's shape, full and mixed
+    fill: CUDA events (plain, kernel, SDPA, kernel, plain, SDPA in turns),
+    profiler device time (the split kernel and, past one split, the
+    combine), the byte bound at 3.35 TB/s and its share of the device
+    time, the plain version and, as `library_ms`, SDPA with a mask of the
+    filled rows (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention, decode_attention_plain, filled_rows)
+    out = {}
+    for label, positions in DECODE_FILLS.items():
+        q, ck, cv, pos = decode_inputs(positions, dev)
+        W = ck.shape[1]
+        kern = lambda: decode_attention(q, ck, cv, pos)
+        plain = lambda: decode_attention_plain(q, ck, cv, pos)
+        qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
+        mask = (torch.arange(W, device=dev)[None]
+                < filled_rows(pos, W)[:, None])[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        p1, k1, l1 = time_ms(plain, 5), time_ms(kern, 50), time_ms(lib, 10)
+        k2, p2, l2 = time_ms(kern, 50), time_ms(plain, 5), time_ms(lib, 10)
+        split = device_ms(kern, "decode_attention_kernel", reps=20)
+        combine = device_ms(kern, "decode_attention_combine", reps=20)
+        d = None if split is None or combine is None else split + combine
+        nbytes = decode_bytes(q, ck, pos)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        ms = (k1 + k2) / 2
+        out[label] = dict(ms=ms, device_ms=d, split_ms=split,
+                          combine_ms=combine, plain_ms=(p1 + p2) / 2,
+                          library_ms=(l1 + l2) / 2, bound_ms=bound,
+                          bound_by="bytes", bytes=nbytes,
+                          roofline=None if d is None else bound / d)
+        log(f"time decode_attention bf16 {label} (B, W, K, hd, G) = "
+            f"{DECODE_CELL}, {int(filled_rows(pos, W).sum())} filled rows: "
+            f"kernel {k1!r} / {k2!r} ms, device {d!r} ms (split {split!r}, "
+            f"combine {combine!r}), plain {p1!r} / {p2!r} ms, "
+            f"scaled_dot_product_attention {l1!r} / {l2!r} ms, bound "
+            f"{bound!r} ms ({nbytes} bytes at 3.35 TB/s), "
+            f"{out[label]['roofline']!r} of it [{card}]")
+    return out
+
+
 def serve_requests(vocab: int, lens=SERVE_LENS):
     """The serve workload: 16 requests, four of each prompt length in
     `lens` (seeded random tokens), 64 new tokens each; odd rids sample at
@@ -2222,6 +2358,7 @@ def counted() -> dict:
     """Every kernel wrapper's launch counter, by name."""
     from repro_torch.kernels.batched_solve import fused
     from repro_torch.kernels.batched_solve.kernel import batched_solve
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.gc_array_step import ops
     return {"fused_newton": fused.fused_newton,
@@ -2229,7 +2366,8 @@ def counted() -> dict:
             "gauss_jordan": batched_solve,
             "gc_array_step": ops.gc_array_step,
             "flash_attention_tc": kernel.flash_attention_tc,
-            "flash_attention_f32": kernel.flash_attention_f32}
+            "flash_attention_f32": kernel.flash_attention_f32,
+            "decode_attention": decode_attention}
 
 
 def launch_counts() -> dict:
@@ -2272,6 +2410,8 @@ class PhaseEvents:
         # per prefill dispatch: (B, S, tensor-core and float32 flash
         # launches it made, and of those the non-causal ones, both kernels)
         self.prefills = []
+        # per decode chunk: (steps, decode-attention launches it made)
+        self.decodes = []
 
     def __enter__(self):
         for name, pairs in self.pairs.items():
@@ -2282,10 +2422,14 @@ class PhaseEvents:
                 end = torch.cuda.Event(enable_timing=True)
                 before = flash_counts()
                 nc_before = sum(flash_counts(noncausal=True).values())
+                da_before = decode_launches()
                 start.record()
                 out = _fn(*args, **kwargs)
                 end.record()
                 _pairs.append((start, end))
+                if _name == "decode_loop":
+                    self.decodes.append((kwargs["n_tokens"],
+                                         decode_launches() - da_before))
                 if _name == "prefill":
                     after = flash_counts()
                     B, S = args[0]["tokens"].shape
@@ -2629,6 +2773,7 @@ def serve_family(model, cfg, lens, window, label, card,
     serve timed (wall, prefill and decode spans by `PhaseEvents`), with
     the counted run's streams."""
     per, per_nc = flash_per_dispatch(cfg), noncausal_per_dispatch(cfg)
+    per_step = decode_per_step(cfg)
     reset_counts()
     with PhaseEvents(model) as counted_run:
         eng, streams, first = run_engine(model, cfg, "device", lens, window)
@@ -2639,7 +2784,11 @@ def serve_family(model, cfg, lens, window, label, card,
     windowed = sum(tc for _, S, tc, _, _ in counted_run.prefills
                    if W and S > W)
     n_long = sum(1 for _, S, _, _, _ in counted_run.prefills if W and S > W)
+    steps = sum(n for n, _ in counted_run.decodes)
+    decoded = sum(d for _, d in counted_run.decodes)
     ok = (counts[torch.bfloat16] == per * prefills
+          and steps > 0 and all(d == per_step * n
+                                for n, d in counted_run.decodes)
           and counts[torch.float32] == 0
           and nc[torch.bfloat16] == per_nc * prefills
           and len(counted_run.prefills) == prefills
@@ -2662,8 +2811,10 @@ def serve_family(model, cfg, lens, window, label, card,
         + (f", of which past the {W}-token window {windowed} (expected "
            f"{per} x {n_long})" if W else "")
         + f", float32 flash_attention launches {counts[torch.float32]} "
-        f"(expected 0), every request {SERVE_MAX_NEW} tokens "
-        f"{'ok' if ok else 'FAILED'}")
+        f"(expected 0), decode_attention launches {decoded} over {steps} "
+        f"decode steps in {len(counted_run.decodes)} chunks "
+        f"({decoded / steps!r} a step, expected {per_step}), every request "
+        f"{SERVE_MAX_NEW} tokens {'ok' if ok else 'FAILED'}")
     if not ok:
         raise RuntimeError(f"serve path {label} counts or budgets")
     if host:
@@ -2699,7 +2850,8 @@ def serve_family(model, cfg, lens, window, label, card,
         f"tokens emitted by decode) [{card}]")
     return {"launches": counts[torch.bfloat16], "prefills": prefills,
             "per_dispatch": per, "windowed": windowed,
-            "noncausal": nc[torch.bfloat16], "times": times}
+            "noncausal": nc[torch.bfloat16], "times": times,
+            "decode_launches": decoded, "decode_steps": steps}
 
 
 def int8_path(model, cfg, dev, card, bf16_times) -> dict:
@@ -4819,12 +4971,15 @@ def runtime_path(dev, card) -> dict:
     wall = time.perf_counter() - t0
     n = launch_counts()
     want = cfg.n_layers * eng.admit_syncs
+    decoded = n["decode_attention"]
     log(f"runtime replay: {cfg.name} {cfg.dtype} full width, {served} "
         f"requests over {sum(map(len, windows.values()))} windows of 3 "
         f"scenarios in "
         f"{wall:.2f} s, every request its budget; {eng.admit_syncs} prefill "
-        f"dispatches, launches {n} (flash_attention_tc expected {want})")
-    if n["flash_attention_tc"] != want or sum(n.values()) != want:
+        f"dispatches, launches {n} (flash_attention_tc expected {want}, "
+        f"decode_attention {cfg.n_layers} a decode step)")
+    if n["flash_attention_tc"] != want or decoded <= 0 \
+            or decoded % cfg.n_layers or sum(n.values()) != want + decoded:
         raise RuntimeError("runtime replay flash launches")
     tc_launches = n["flash_attention_tc"]
     del eng, model
@@ -5249,7 +5404,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = build.build_all()
     log(f"build: {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
-    if sorted(paths) != sorted(build.SOURCES) or len(paths) != 5:
+    if sorted(paths) != sorted(build.SOURCES):
         log(f"FAILED: built {sorted(paths)}")
         return 1
     for kname, path in paths.items():
@@ -5324,6 +5479,7 @@ def main() -> int:
     gj_block_launches = batched_solve.block_launches
     gc_err = check_gc_array_step(dev)
     fa_err = check_flash_attention(dev)
+    da_err = check_decode_attention(dev)
 
     phase("4")
     # -- 4. the main path, counted
@@ -5509,6 +5665,7 @@ def main() -> int:
             f"({bound_by}) [{card}]")
     new_times = time_new_kernels(dev, card)
     fa_times = time_flash(dev, card)
+    da_times = time_decode_attention(dev, card)
     profile_query(match_query(), "match", n_groups, card)
     profile_query(layout_query(), "layout sweep", n_groups, card)
     profile_grad(cfgs, card)
@@ -5588,7 +5745,17 @@ def main() -> int:
         "launches": served["launches"], "max_abs_err": fa_err[torch.bfloat16],
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
-        "library_ms": fa["library_ms"]}]
+        "library_ms": fa["library_ms"]}, {
+        # the moe serve's decode steps (phase 11b), timed at the benchmark
+        # cell's shape at full fill (the mixed fill beside it)
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": None,
+        "launches": served_moe["decode_launches"], "max_abs_err": da_err,
+        **{f: da_times["full fill"][f] for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "mixed_fill": da_times["mixed fill"]}]
     # every row gains phase 12's launches by part (empty for a kernel the
     # phase does not launch; the fleet's are summed over its workers)
     for k in kernels:

@@ -2,8 +2,9 @@
 
 Each source under `src/repro_torch/csrc/` compiles with `nvcc` for
 `sm_90a` into a shared library with a plain C interface, loaded with
-ctypes. Builds happen at first use, into `build/repro_torch_kernels/` at
-the root of the checkout, keyed by a hash of the source and the flags,
+ctypes. Builds happen at first use (of any kernel: every missing source then
+builds at once), into `build/repro_torch_kernels/` at the root of the
+checkout, keyed by a hash of the source and the flags,
 so an edited source rebuilds and an unchanged one loads at once.
 `build_all` starts one `nvcc` per source together and waits for all.
 """
@@ -25,7 +26,7 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_newton", "gauss_jordan", "gc_array_step",
-           "flash_attention", "flash_attention_tc")
+           "flash_attention", "flash_attention_tc", "decode_attention")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -90,8 +91,12 @@ def raw_stream(index: int) -> int:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed: the
+    first one missing builds every missing source of `SOURCES` at once,
+    so a process that uses several kernels waits for one `nvcc`, not for
+    each in turn."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build_all([name])[name]))
+        names = SOURCES if name in SOURCES else (name,)
+        lib = _LOADED[name] = ctypes.CDLL(str(build_all(names)[name]))
     return lib

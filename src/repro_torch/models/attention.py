@@ -7,10 +7,15 @@ Prefill attention (`attend_train` and `cross_attend_train` ->
 `csrc/flash_attention.cu` through `kernels.flash_attention.ops` (or
 raises), a CPU tensor runs the blocked pure-torch flash attention of the
 reference (`kernels.flash_attention.kernel.flash_attention_plain`); a
-sliding window goes into the kernel's mask. Decode attends one new token
-against the cache in plain torch, as the reference does outside any
-Pallas kernel; it writes the new K/V row (and, for an int8 cache, its
-scales) into the cache in place. Under a sliding window the cache is a
+sliding window goes into the kernel's mask. Decode writes the new K/V
+row (and, for an int8 cache, its scales) into the cache in place, then
+attends one new token against the cache: a CUDA cache launches the
+decode-attention kernel `csrc/decode_attention.cu` through
+`kernels.decode_attention.kernel.decode_attention` (or raises), which
+reads the cache in place and only each slot's filled rows; a CPU cache,
+and a DTensor cache under a mesh, run `decode_attention_plain`, the
+reference's plain masked einsums (the reference has no kernel there).
+Under a sliding window the cache is a
 ring of `window` rows indexed by pos % window (`seed_ring_cache` lays out
 a prefill's rows so); an int8 cache holds per-token, per-head symmetric
 int8 values with bf16 scales (`quantize_kv`), folded into the scores and
@@ -39,12 +44,12 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.kernels.decode_attention.kernel import decode_attention, \
+    decode_attention_plain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import axis_sizes, current_mesh, \
     dense_init, dtype_of, gathered, is_dtensor, param, reshaped, rope, \
-    shard_act, shard_act_as
-
-NEG_INF = -1e30
+    shard_act, shard_act_as, softmax_last
 
 
 class Attention(nn.Module):
@@ -267,7 +272,7 @@ def cross_decode(p, x, cross_k, cross_v):
     qg = q.reshape(B, K, H // K, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
                      cross_k.float()) / math.sqrt(hd)
-    w = _softmax(s)
+    w = softmax_last(s)
     o = torch.einsum("bkgs,bskh->bkgh", w.to(cross_v.dtype), cross_v)
     return _heads_out(o.reshape(B, 1, H, hd), p.wo)
 
@@ -304,18 +309,6 @@ def seed_ring_cache(k, v, window):
         return torch.cat([tail[..., cut:, :, :], tail[..., :cut, :, :]],
                          dim=-3)
     return ring(k), ring(v)
-
-
-def _softmax(s):
-    """Softmax over the last axis. A DTensor whose last axis is sharded
-    (the decode rules' kv_seq) takes the max and the sum as partial
-    reductions, two small all-reduces, where torch.softmax would gather
-    the scores whole."""
-    if not is_dtensor(s) or not any(pl.is_shard(s.dim() - 1)
-                                    for pl in s.placements):
-        return torch.softmax(s, dim=-1)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
 
 
 def write_rows(cache, rows, slot, bidx):
@@ -384,27 +377,14 @@ def decode(p, x, cache_k, cache_v, pos, cfg, *, use_rope=True, ring=False,
         write_rows(cache_k, k[:, 0].to(cache_k.dtype), slot, bidx)
         write_rows(cache_v, v[:, 0].to(cache_v.dtype), slot, bidx)
 
-    H, hd = q.shape[2], q.shape[3]
-    K = cache_k.shape[2]
     # one token's q whole over its heads, so that (H) splits into (K, G)
     q = shard_act(q, "batch", "seq", None, "head_dim")
-    qg = q.reshape(B, K, H // K, hd)
-    # float32 scores from the working dtype's operands
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
-                     cache_k.to(q.dtype).float()) / math.sqrt(hd)
-    if scales is not None:
-        s = s * ks.float().permute(0, 2, 1)[:, :, None, :]
-    slots = torch.arange(W, device=x.device)[None]
-    valid = slots <= slot[:, None]
-    if ring:
-        valid = valid | (pos[:, None] >= W)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    w = _softmax(s)
-    if scales is not None:
-        w = w * vs.float().permute(0, 2, 1)[:, :, None, :]
-    o = torch.einsum("bkgs,bskh->bkgh", w.to(q.dtype),
-                     cache_v.to(q.dtype))
-    o = _heads_out(o.reshape(B, 1, H, hd), p.wo)
+    if is_dtensor(cache_k) or not cache_k.is_cuda:
+        o = decode_attention_plain(q, cache_k, cache_v, pos, ring=ring,
+                                   scales=scales)
+    else:
+        o = decode_attention(q, cache_k, cache_v, pos, scales=scales)
+    o = _heads_out(o, p.wo)
     if scales is not None:
         return o, cache_k, cache_v, (ks, vs)
     return o, cache_k, cache_v

@@ -175,6 +175,18 @@ def is_dtensor(x) -> bool:
     return isinstance(x, _DTENSOR)
 
 
+def softmax_last(s):
+    """Softmax over the last axis. A DTensor whose last axis is sharded
+    (the decode rules' kv_seq) takes the max and the sum as partial
+    reductions, two small all-reduces, where torch.softmax would gather
+    the scores whole."""
+    if not is_dtensor(s) or not any(pl.is_shard(s.dim() - 1)
+                                    for pl in s.placements):
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def gathered(w):
     """A weight as its consumer uses it: a DTensor gathered over every
     mesh axis but 'model' (the FSDP shard of its embed dimension, as the

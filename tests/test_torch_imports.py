@@ -37,7 +37,8 @@ def test_port_has_modules():
                  "kernels/gc_array_step/ref.py",
                  "kernels/flash_attention/kernel.py",
                  "kernels/flash_attention/ops.py",
-                 "kernels/flash_attention/ref.py", "configs/base.py",
+                 "kernels/flash_attention/ref.py",
+                 "kernels/decode_attention/kernel.py", "configs/base.py",
                  "configs/llama3_2_1b.py", "models/common.py",
                  "models/attention.py", "models/transformer.py",
                  "models/model.py", "models/moe.py", "models/ssm.py",
@@ -67,7 +68,7 @@ def test_port_has_modules():
                  "launch/dryrun.py", "launch/report.py"):
         assert need in names
     for src in ("fused_newton", "gauss_jordan", "gc_array_step",
-                "flash_attention", "flash_attention_tc"):
+                "flash_attention", "flash_attention_tc", "decode_attention"):
         assert (PORT / "csrc" / f"{src}.cu").exists()
 
 

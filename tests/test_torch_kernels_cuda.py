@@ -1034,3 +1034,194 @@ def test_mesh_prefill_on_the_card_launches_the_kernel(cuda):
         assert err <= 1e-2 * float(want.abs().max()), err
     finally:
         M.close_group()
+
+
+# -- decode attention (csrc/decode_attention.cu) ------------------------------
+
+# (label, B, W, K, hd, G, cache dtype, ring, positions): each family's
+# decode shape; the first is the benchmark cell's (mixtral at 8 layers, a
+# 12,336-row window) with mixed fills, idle slots (pos 0) among them
+DECODE_CASES = [
+    ("mixtral cell", 16, 12336, 8, 128, 4, "bfloat16", False,
+     (0, 1023, 3071, 12335, 0, 0, 16, 255, 256, 257, 4000, 12400, 5000, 0,
+      8191, 2047)),
+    ("llama hd 64", 8, 2048, 8, 64, 4, "bfloat16", False,
+     (0, 1, 63, 64, 500, 1023, 2047, 3000)),
+    ("zamba2 hd 80 G 1", 4, 2048, 32, 80, 1, "bfloat16", False,
+     (0, 16, 700, 2047)),
+    ("internvl2 G 7", 4, 2048, 2, 64, 7, "bfloat16", False,
+     (0, 16, 1300, 2047)),
+    ("whisper no rope", 8, 448, 20, 64, 1, "bfloat16", False,
+     (0, 1, 16, 100, 255, 256, 447, 500)),
+    ("mixtral ring before wrap", 4, 4096, 8, 128, 4, "bfloat16", True,
+     (0, 16, 1000, 4095)),
+    ("mixtral ring after wrap", 4, 4096, 8, 128, 4, "bfloat16", True,
+     (4096, 5000, 8191, 9000)),
+    ("llama int8", 8, 2048, 8, 64, 4, "int8", False,
+     (0, 1, 16, 500, 1023, 1024, 2047, 2047)),
+    ("llama float32", 8, 2048, 8, 64, 4, "float32", False,
+     (0, 1, 16, 500, 1023, 1024, 2047, 2047)),
+    ("reduced float32 hd 16", 2, 64, 2, 16, 2, "float32", True,
+     (0, 70)),
+    ("reduced int8 float32 q", 2, 64, 4, 16, 1, "int8", False, (3, 63)),
+]
+
+
+def _decode_inputs(case, device, seed=0):
+    """q (B, 1, H, hd), the caches (every row drawn, so rows past a fill
+    hold values the kernel must not read), pos and the int8 scales."""
+    _, B, W, K, hd, G, cache, _, positions = case
+    rng = np.random.default_rng(seed + W + hd + G)
+    qdt = torch.float32 if cache == "float32" or "float32 q" in case[0] \
+        else torch.bfloat16
+    q = torch.as_tensor(rng.standard_normal((B, 1, K * G, hd)), dtype=qdt,
+                        device=device)
+    scales = None
+    if cache == "int8":
+        ck, cv = (torch.as_tensor(rng.integers(-127, 128, (B, W, K, hd)),
+                                  dtype=torch.int8, device=device)
+                  for _ in range(2))
+        scales = tuple(torch.as_tensor(rng.uniform(2e-3, 2e-2, (B, W, K)),
+                                       dtype=torch.bfloat16, device=device)
+                       for _ in range(2))
+    else:
+        ck, cv = (torch.as_tensor(rng.standard_normal((B, W, K, hd)),
+                                  dtype=getattr(torch, cache), device=device)
+                  for _ in range(2))
+    pos = torch.tensor(positions, dtype=torch.int32, device=device)
+    return q, ck, cv, pos, scales
+
+
+def _decode_limit(q_dtype, want):
+    """Per slot, the limit of |kernel - plain|: for a bf16 output at most
+    4 units of bf16's 2^-8 rounding of the slot's largest plain output
+    (and FLASH_ATOL's 3e-2): the plain version rounds the weights to bf16
+    before P V and both round o once, while a slot's output over thousands
+    of rows averages down to a few hundredths, where one absolute limit for
+    all slots would pass a kernel that drops a long slot's rows. float32:
+    the reference's float32 limit, FLASH_ATOL's 2e-5, against sums in
+    another order."""
+    B = want.shape[0]
+    if q_dtype == torch.float32:
+        return torch.full((B,), FLASH_ATOL[torch.float32],
+                          device=want.device)
+    big = want.float().abs().reshape(B, -1).amax(dim=1)
+    return torch.clamp(2.0 ** -6 * big, max=FLASH_ATOL[torch.bfloat16])
+
+
+def _slot_gap(got, want):
+    B = got.shape[0]
+    return (got.float() - want.float()).abs().reshape(B, -1).amax(dim=1)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: c[0])
+def test_decode_attention_matches_plain(cuda, case):
+    """The kernel against the plain version on the card at each family's
+    decode shape, slot by slot within `_decode_limit`; one launch a call.
+    The limit catches a planted fault: the plain version admitting one row
+    past the fill moves every slot of at most 16 rows past it. At bf16 the
+    kernel is no farther from a float64 computation than the plain version
+    is, on average."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention, decode_attention_plain, filled_rows)
+    ring = case[7]
+    q, ck, cv, pos, scales = _decode_inputs(case, cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, ck, cv, pos, scales)
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(q, ck, cv, pos, ring=ring, scales=scales)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    limit = _decode_limit(q.dtype, want)
+    gap = _slot_gap(got, want)
+    assert bool((gap <= limit).all()), (gap.tolist(), limit.tolist())
+    W = ck.shape[1]
+    fill = filled_rows(pos, W)
+    short = fill < W
+    if bool(short.any()):
+        faulty = decode_attention_plain(q, ck, cv, pos + short.int(),
+                                        ring=ring, scales=scales)
+        caught = _slot_gap(got, faulty) > limit
+        assert bool(caught[fill <= 16].all()), caught.tolist()
+    if q.dtype == torch.bfloat16:
+        exact = decode_attention_plain(
+            q.double(), ck.double(), cv.double(), pos, ring=ring,
+            scales=None if scales is None else tuple(s.double()
+                                                     for s in scales))
+        assert float((got.double() - exact).abs().mean()) <= \
+            float((want.double() - exact).abs().mean())
+
+
+def test_decode_attention_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits at the cell's
+    shape: the splits merge in a fixed order, no atomics."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    q, ck, cv, pos, _ = _decode_inputs(DECODE_CASES[0], cuda)
+    first = decode_attention(q, ck, cv, pos)
+    second = decode_attention(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_decode_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    q, ck, cv, pos, _ = _decode_inputs(DECODE_CASES[1], cuda)
+    with pytest.raises(TypeError):
+        decode_attention(q, ck.float(), cv.float(), pos)
+    with pytest.raises(TypeError):
+        decode_attention(q, ck.to(torch.int8), cv.to(torch.int8), pos)
+    with pytest.raises(ValueError):
+        decode_attention(q, ck.cpu(), cv.cpu(), pos)
+    with pytest.raises(ValueError, match="groups"):      # G = 16
+        decode_attention(q, ck[:, :, :2].contiguous(),
+                         cv[:, :, :2].contiguous(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, ck[:, :, :4], cv[:, :, :4], pos)
+    with torch.enable_grad():
+        with pytest.raises(RuntimeError, match="autograd"):
+            decode_attention(q.float().requires_grad_(), ck.float(),
+                             cv.float(), pos)
+
+
+def test_decode_attention_on_the_serve_path(cuda):
+    """A reduced llama3.2-1b at float32 served on the card in device mode
+    with decode chunks of 4: every decode step launches the kernel once a
+    layer, and the serve takes as many host syncs and gives the same
+    greedy streams as the CPU run with the same weights (which launches
+    nothing)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServeEngine
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 20, 7)]
+    runs = []
+    for model in (Model(cfg, device="cpu", seed=0).to(cuda),
+                  Model(cfg, device="cpu", seed=0)):
+        steps = []
+        inner = model.decode_step
+
+        def counted(*args, _inner=inner, **kwargs):
+            steps.append(1)
+            return _inner(*args, **kwargs)
+        model.decode_step = counted
+        eng = ServeEngine(cfg, model, n_slots=2, window=64, mode="device",
+                          decode_chunk=4)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=9))
+        before = decode_attention.launches
+        done, _ = eng.run()
+        runs.append((decode_attention.launches - before, len(steps),
+                     eng.host_syncs, {r.rid: r.out_tokens for r in done}))
+    (card_launches, card_steps, card_syncs, card_streams), \
+        (cpu_launches, cpu_steps, cpu_syncs, cpu_streams) = runs
+    assert card_steps > 0 and card_launches == cfg.n_layers * card_steps
+    assert cpu_launches == 0 and cpu_steps == card_steps
+    assert card_syncs == cpu_syncs
+    assert card_streams == cpu_streams

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from perfbench.harness import flops, traffic as tr, weights as wts
-from perfbench.harness.common import Check, check_widths, port_config, \
-    process_age_s, reference
+from perfbench.harness.common import Check, check_widths, counts, \
+    port_config, process_age_s, reference
 from perfbench.harness.trace import Tracer, label
 
 
@@ -193,12 +193,14 @@ class Served:
         from repro_torch.models.model import Model
         from repro_torch.serving import ServeEngine
         self.c, self.mix, self.device = cell.config, cell.traffic, device
+        counts(self.c)          # the window counts with it: fail here
         cfg = port_config(self.c, override)
         check_widths(cfg, self.c)
         self.ref = reference(self.c)
-        self.weights = wts.draw(self.ref.layout(self.c),
-                                self.ref.residual_branches(self.c), seed,
-                                device)
+        self.weights = wts.draw(
+            self.ref.layout(self.c), self.ref.residual_branches(self.c),
+            seed, device,
+            initial=lambda *a: self.ref.initial(self.c, *a))
         self.model = wts.load_into(Model(cfg, device="meta"), self.weights)
         mix = self.mix
         self.engine = ServeEngine(
@@ -226,9 +228,9 @@ class Served:
         eng.telemetry = None
         t0, t1 = loop.t0, loop.t0 + seconds
         done = [loop.stats[q.index] for q in reqs if q.index in loop.stats]
-        toks = sum(n for t, n in loop.admits if t0 <= t <= t1) \
-            + sum(n for t, n, _ in loop.chunks if t0 <= t <= t1)
-        metrics = {"tokens_per_s": toks / seconds}
+        admitted = sum(n for t, n in loop.admits if t0 <= t <= t1)
+        decoded = sum(n for t, n, _ in loop.chunks if t0 <= t <= t1)
+        metrics = {"tokens_per_s": (admitted + decoded) / seconds}
         # per-layer readings: the window up to the trace (all of it when
         # untraced), the engine's syncs over it and the drain
         cut = loop.cut if loop.cut is not None else t1
@@ -249,6 +251,9 @@ class Served:
                 n * flops.decode_flops(c, x) for t, n, x in loop.chunks
                 if t0 <= t <= cut),
             "tracer": tracer,
+            # tokens_per_s's parts: admissions (prompts and their first
+            # tokens) and decode chunks
+            "window_tokens": {"admitted": admitted, "decoded": decoded},
         }
         return metrics, ctx, loop
 
@@ -278,7 +283,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     extra = {"attempted": len(reqs),
              "failed": len(reqs) - len(loop_done),
              "setup_s": setup_s, "peak": peak, "ctx": ctx,
-             "readings": dict(other, served_tokens_compared=readings[2])}
+             "readings": dict(other, served_tokens_compared=readings[2],
+                              **{f"window_tokens_{k}": v for k, v in
+                                 ctx["window_tokens"].items()})}
     if tracer is not None and tracer.done:
         extra.update(busy_s=tracer.busy_s, window_s=tracer.window_s,
                      breakdown=tracer.breakdown())

@@ -6,8 +6,11 @@ A cell is found by name in `BENCHMARK.json`; its configuration file
 (`perfbench/configs/<config>.json`), its traffic file
 (`perfbench/traffic/<traffic>.json`, whose "kind" names the driver module
 `perfbench/drivers/<kind>.py`) and each per-layer metric's reader
-(`perfbench/metrics/<name>.py`) are found by the names in it, so a new
-cell, mix or metric is new files and entries only.
+(`perfbench/metrics/<name>.py`) are found by the names in it; the
+configuration file names its plain reference
+(`perfbench/reference/<reference>.py`) and its `model_type` the module of
+its operation counts (`perfbench/counts/<model_type>.py`). So a new cell,
+mix, metric or model type is new files and entries only.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -72,19 +76,41 @@ def driver(kind: str):
     return importlib.import_module(f"perfbench.drivers.{kind}")
 
 
+_PIECES = {}            # path -> module loaded from it
+
+
+def piece(kind: str, name: str):
+    """The module `perfbench/<kind>/<name>.py`, loaded from its file once a
+    process. A piece that is not there fails here, naming the path."""
+    path = PERFBENCH / kind / f"{name}.py"
+    if path not in _PIECES:
+        if not path.is_file():
+            raise FileNotFoundError(
+                f"perfbench: no {kind} module for {name!r}: {path}")
+        spec = importlib.util.spec_from_file_location(
+            f"perfbench_{kind}_{re.sub(r'[^A-Za-z0-9_]', '_', name)}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _PIECES[path] = mod
+    return _PIECES[path]
+
+
 def reference(config: dict):
     """The plain reference module a configuration file names."""
-    return importlib.import_module(f"perfbench.reference.{config['reference']}")
+    return piece("reference", config["reference"])
+
+
+def counts(config: dict):
+    """The operation counts of a configuration file's model type:
+    `layer_matmul_params(c)` and `attention_layers(c)`, and where the type
+    has them `other_prefill_flops(c, S)` and `other_decode_flops(c,
+    context)` (`harness/flops.py`)."""
+    return piece("counts", config["model_type"])
 
 
 def reader(metric: str):
     """The `read(ctx)` of a per-layer metric's reader file."""
-    path = PERFBENCH / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return piece("metrics", metric).read
 
 
 def port_config(config: dict, override=None):
@@ -99,18 +125,26 @@ def port_config(config: dict, override=None):
     return cfg
 
 
+# program attribute -> configuration file key, checked where the file has
+# the key
+WIDTHS = {"d_model": "hidden_size", "d_ff": "intermediate_size",
+          "n_heads": "num_attention_heads",
+          "n_kv_heads": "num_key_value_heads",
+          "n_layers": "num_hidden_layers", "vocab_size": "vocab_size",
+          "n_experts": "num_local_experts", "top_k": "num_experts_per_tok",
+          "sliding_window": "sliding_window", "rope_theta": "rope_theta",
+          "norm_eps": "rms_norm_eps", "act": "hidden_act",
+          "dtype": "torch_dtype", "tie_embeddings": "tie_word_embeddings"}
+
+
 def check_widths(cfg, c: dict):
-    """The program's config must carry the configuration file's widths."""
-    pairs = {"d_model": "hidden_size", "d_ff": "intermediate_size",
-             "n_heads": "num_attention_heads",
-             "n_kv_heads": "num_key_value_heads",
-             "n_layers": "num_hidden_layers", "vocab_size": "vocab_size",
-             "n_experts": "num_local_experts", "top_k": "num_experts_per_tok",
-             "sliding_window": "sliding_window", "rope_theta": "rope_theta", "norm_eps": "rms_norm_eps",
-             "act": "hidden_act", "dtype": "torch_dtype",
-             "tie_embeddings": "tie_word_embeddings"}
+    """The program's config must carry the configuration file's widths:
+    the pairs of `WIDTHS` whose key the file has, and every pair the file
+    lists under `port.widths` (program attribute -> file key)."""
+    pairs = {a: b for a, b in WIDTHS.items() if b in c} \
+        | c["port"].get("widths", {})
     bad = [(a, getattr(cfg, a), c[b]) for a, b in pairs.items()
-           if b in c and getattr(cfg, a) != (c[b] if c[b] is not None else 0)]
+           if getattr(cfg, a) != (c[b] if c[b] is not None else 0)]
     if bad:
         raise RuntimeError(f"the program's config differs from the "
                            f"configuration file: {bad}")

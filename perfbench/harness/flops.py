@@ -3,7 +3,10 @@
 Frozen here so that a change to the program cannot change the yardstick:
 nothing is imported from the program. Every count is worked out from a
 configuration file's widths (the keys of `perfbench/configs/*.json`) and
-from the shapes a run records.
+from the shapes a run records. What differs between model types, the
+weights a token multiplies through and the number of attention layers,
+is in the counts module named by the file's model type
+(`perfbench/counts/<model_type>.py`, `common.counts`).
 
 Peaks are NVIDIA's data sheet for one H100 SXM (dense, no sparsity):
 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3.
@@ -11,6 +14,8 @@ Peaks are NVIDIA's data sheet for one H100 SXM (dense, no sparsity):
 from __future__ import annotations
 
 import numpy as np
+
+from perfbench.harness.common import counts
 
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -50,53 +55,41 @@ def flash_bound_s(B, Sq, Skv, H, K, hd, q_offset=0, kv_len=None,
 # Model operations per token, from a configuration file's widths
 # ---------------------------------------------------------------------------
 
-def _attn_params(c) -> int:
-    d, H, K = c["hidden_size"], c["num_attention_heads"], \
-        c["num_key_value_heads"]
-    hd = head_dim(c)
-    return d * H * hd * 2 + d * K * hd * 2
-
-
 def head_dim(c) -> int:
     return c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"]
 
 
-def layer_matmul_params(c) -> float:
-    """Weights one token multiplies through in all the layers (the experts
-    at experts-per-token of their count): 2 operations each."""
-    d, f, L = c["hidden_size"], c["intermediate_size"], \
-        c["num_hidden_layers"]
-    mt = c["model_type"]
-    if mt == "mixtral":
-        ffn = c["num_experts_per_tok"] * 3 * d * f + d * c["num_local_experts"]
-        return L * (_attn_params(c) + ffn)
-    raise ValueError(f"no operation count for model_type {mt!r}")
-
-
-def attention_layers(c) -> int:
-    mt = c["model_type"]
-    if mt == "mixtral":
-        return c["num_hidden_layers"]
-    raise ValueError(mt)
+def _other(k, name, c, x) -> float:
+    """A model type's operations that are not weight products (a scan's,
+    say): its counts module's `name(c, x)`, or none."""
+    f = getattr(k, name, None)
+    return f(c, x) if f is not None else 0.0
 
 
 def prefill_flops(c, B: int, S: int) -> float:
-    """One prefill of B prompts of S tokens: every layer for every token,
-    causal attention (within the window, if one is set), and the logits of the last position."""
+    """One prefill of B prompts of S tokens: every layer for every token
+    (the counts module's weights a token multiplies, 2 operations each),
+    causal attention in its attention layers (within the window, if one is
+    set), the type's other operations, and the logits of the last
+    position."""
+    k = counts(c)
     hd = head_dim(c)
     pairs = visible_pairs(S, S, window=c.get("sliding_window") or 0)
-    per_seq = (S * 2.0 * layer_matmul_params(c)
-               + attention_layers(c) * attention_flops(
+    per_seq = (S * 2.0 * k.layer_matmul_params(c)
+               + k.attention_layers(c) * attention_flops(
                    pairs, c["num_attention_heads"], hd)
-               + 2.0 * c["hidden_size"] * c["vocab_size"])
+               + 2.0 * c["hidden_size"] * c["vocab_size"]) \
+        + _other(k, "other_prefill_flops", c, S)
     return B * per_seq
 
 
 def decode_flops(c, context: float) -> float:
     """One decoded token that attends to `context` cached positions."""
+    k = counts(c)
     W = c.get("sliding_window") or 0
     ctx = min(context, W) if W else context
-    return (2.0 * layer_matmul_params(c)
+    return (2.0 * k.layer_matmul_params(c)
             + 2.0 * c["hidden_size"] * c["vocab_size"]
-            + attention_layers(c) * attention_flops(
-                ctx, c["num_attention_heads"], head_dim(c)))
+            + k.attention_layers(c) * attention_flops(
+                ctx, c["num_attention_heads"], head_dim(c))) \
+        + _other(k, "other_decode_flops", c, context)

@@ -15,7 +15,16 @@ run's seed), cut into views and scaled by role:
           program's own init, 1/sqrt(fan_in) everywhere, grows the stream
           layer by layer and makes a deep stack amplify rounding);
   router  std 1/sqrt(d), float32;
-  ones    norm scales.
+  ones    norm scales;
+  zeros   biases that start at zero;
+  given   values the reference module works out itself, by its
+          `initial(c, name, shape, dtype, gen, device)` in plain torch,
+          from the run's own generator: state and biases whose published
+          initialisation is not a scaled normal draw, such as Mamba2's
+          `A_log` (the log of a uniform draw) and `dt_bias` (the inverse
+          softplus of a log-uniform step). They are made after every
+          normal draw, so the tensors of the other roles are the same
+          with or without them.
 
 The same tensors go to the program (`load_into`) and to the reference.
 """
@@ -35,9 +44,11 @@ def _fill_normal(buf, gen):
         part.normal_(0.0, 1.0, generator=gen)
 
 
-def draw(layout, residual_branches: int, seed: int, device) -> dict:
+def draw(layout, residual_branches: int, seed: int, device,
+         initial=None) -> dict:
     """name -> tensor of every weight of `layout` ((name, shape, dtype,
-    role, fan_in) entries), from `seed`."""
+    role, fan_in) entries), from `seed`; `initial(name, shape, dtype, gen,
+    device)` makes the "given" entries."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     random = [e for e in layout if e[3] in ("embed", "in", "out", "router")]
     out = {}
@@ -62,12 +73,24 @@ def draw(layout, residual_branches: int, seed: int, device) -> dict:
             t.mul_(std)
             out[name] = t
     for name, shape, dtype, role, _ in layout:
-        if name in out:
+        if name in out or role == "given":
             continue
         if role == "ones":
             out[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif role == "zeros":
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             raise ValueError(f"unknown weight role {role!r} of {name}")
+    for name, shape, dtype, role, _ in layout:
+        if role != "given":
+            continue
+        if initial is None:
+            raise ValueError(f"{name} is given, and no initial() was passed")
+        t = initial(name, shape, dtype, gen, device)
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"initial() made {name} {tuple(t.shape)} "
+                             f"{t.dtype}, the layout says {shape} {dtype}")
+        out[name] = t
     return {name: out[name] for name, *_ in layout}
 
 

@@ -10,11 +10,13 @@ import torch
 
 from perfbench.harness import traffic as tr
 from perfbench.harness.cli import run_cell
+from perfbench.harness.common import benchmark, find_cell
 from perfbench.tests import tiny
 from perfbench.tools import control
 
 CPU = torch.device("cpu")
-SERVE = ["mixtral-8L.long-prompt"]
+SERVE = [w["name"] for w in benchmark()["workloads"]
+         if find_cell(w["name"]).traffic["kind"] == "serve"]
 SEED = 2**31 + 11
 SECONDS = 0.8
 

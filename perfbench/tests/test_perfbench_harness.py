@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from perfbench.harness import flops, traffic
-from perfbench.harness.common import PERFBENCH, ROOT, benchmark, driver, \
-    find_cell, load_json, reader, reference
+from perfbench.harness.common import PERFBENCH, ROOT, benchmark, counts, \
+    driver, find_cell, load_json, reader, reference
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -56,6 +56,7 @@ def test_every_cell_finds_its_files_by_name(cell):
     c = find_cell(cell)
     assert driver(c.traffic["kind"]).run
     assert reference(c.config).layout(c.config)
+    assert counts(c.config).layer_matmul_params(c.config) > 0
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     for m in c.per_layer:
@@ -94,20 +95,25 @@ def test_the_mixtral_file_keeps_the_published_config():
 
 
 def test_serve_traffic_repeats_for_a_seed():
-    mix = find_cell("mixtral-8L.long-prompt").traffic
-    a = traffic.serve_schedule(mix, 2**33 + 1, 50, 32000)
-    b = traffic.serve_schedule(mix, 2**33 + 1, 50, 32000)
-    c = traffic.serve_schedule(mix, 2**33 + 2, 50, 32000)
-    assert len(a) == round(mix["rate_per_s"] * 50)
-    assert all(np.array_equal(x.prompt, y.prompt) and x.due_s == y.due_s
-               and x.max_new == y.max_new for x, y in zip(a, b))
-    # another seed: other token ids, the same sizes at the same times
-    assert [len(x.prompt) for x in a] == [len(x.prompt) for x in c]
-    assert [x.due_s for x in a] == [x.due_s for x in c]
-    assert any(not np.array_equal(x.prompt, y.prompt) for x, y in zip(a, c))
-    lens = [len(x.prompt) for x in a]
-    assert min(lens) >= mix["prompt"]["min"] and max(lens) <= \
-        mix["prompt"]["max"]
+    for w in benchmark()["workloads"]:
+        cell = find_cell(w["name"])
+        mix, vocab = cell.traffic, cell.config["vocab_size"]
+        if mix["kind"] != "serve":
+            continue
+        a = traffic.serve_schedule(mix, 2**33 + 1, 50, vocab)
+        b = traffic.serve_schedule(mix, 2**33 + 1, 50, vocab)
+        c = traffic.serve_schedule(mix, 2**33 + 2, 50, vocab)
+        assert len(a) == round(mix["rate_per_s"] * 50)
+        assert all(np.array_equal(x.prompt, y.prompt) and x.due_s == y.due_s
+                   and x.max_new == y.max_new for x, y in zip(a, b))
+        # another seed: other token ids, the same sizes at the same times
+        assert [len(x.prompt) for x in a] == [len(x.prompt) for x in c]
+        assert [x.due_s for x in a] == [x.due_s for x in c]
+        assert any(not np.array_equal(x.prompt, y.prompt)
+                   for x, y in zip(a, c))
+        lens = [len(x.prompt) for x in a]
+        assert min(lens) >= mix["prompt"]["min"] and max(lens) <= \
+            mix["prompt"]["max"]
 
 
 @pytest.mark.parametrize("args, bound_ms", [
@@ -122,6 +128,26 @@ def test_serve_traffic_repeats_for_a_seed():
 def test_flash_bound_reproduces_known_launches(args, bound_ms):
     assert flops.flash_bound_s(*args) * 1e3 == pytest.approx(bound_ms,
                                                              rel=2e-5)
+
+
+# the parent harness's counts of Mixtral-8x7B at 8 layers, when they were
+# written out in `harness/flops.py`
+MIXTRAL_PREFILL = {1024: 6529216413696.0, 3072: 19999441813504.0,
+                   12288: 87418684309504.0}
+MIXTRAL_DECODE = {1: 6571032576.0, 4096: 7107772416.0,
+                  12336: 8187805696.0}
+
+
+@pytest.mark.parametrize("S", sorted(MIXTRAL_PREFILL))
+def test_mixtral_prefill_operations_are_unchanged(S):
+    c = load_json(PERFBENCH / "configs" / "mixtral-8x7b-8L.json")
+    assert flops.prefill_flops(c, 1, S) == MIXTRAL_PREFILL[S]
+
+
+@pytest.mark.parametrize("context", sorted(MIXTRAL_DECODE))
+def test_mixtral_decode_operations_are_unchanged(context):
+    c = load_json(PERFBENCH / "configs" / "mixtral-8x7b-8L.json")
+    assert flops.decode_flops(c, context) == MIXTRAL_DECODE[context]
 
 
 def test_visible_pairs_count_the_mask():
@@ -154,12 +180,12 @@ import torch
 torch.set_num_threads(2)
 from perfbench.tests import tiny
 from perfbench.harness.cli import run_cell
-from perfbench.harness.common import forbidden_loaded
+from perfbench.harness.common import counts, forbidden_loaded, reference
 for name in {cells!r}:
     c, port = tiny.cell(name)
     got = run_cell(c, 2**32 + 3, 0.5, 0, torch.device("cpu"), port)
     assert got["result"]["correct"], got
-import perfbench.reference.mixtral
+    reference(c.config), counts(c.config)
 print(forbidden_loaded(), "repro_torch" in sys.modules)
 """
 
@@ -177,7 +203,7 @@ def test_a_cpu_dry_run_loads_no_jax_and_no_jax_package():
 def test_run_refuses_without_a_card(tmp_path):
     out = subprocess.run(
         [sys.executable, str(PERFBENCH / "run.py"), "--workload",
-         "mixtral-8L.long-prompt", "--seed", str(2**31 + 9), "--seconds",
+         benchmark()["workloads"][0]["name"], "--seed", str(2**31 + 9), "--seconds",
          "1", "--trace", "0"], capture_output=True, text=True, timeout=300,
         cwd=str(ROOT))
     if torch.cuda.is_available():
